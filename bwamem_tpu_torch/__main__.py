@@ -1,0 +1,7 @@
+"""`python -m bwamem_tpu_torch` entry point."""
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

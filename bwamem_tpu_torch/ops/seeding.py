@@ -1,0 +1,508 @@
+"""Batched SMEM seeding on torch tensors (smem mode, with and without
+vanilla bwa's re-seed rounds 2 and 3).
+
+Port of bwamem_tpu/ops/seeding.py:smem_seed_batch. Same stages, same
+output order:
+
+  round 1, forward: one pass over read positions (two per trip on occ2
+    indexes); a candidate (segment start, end, interval before the step)
+    is emitted whenever the interval size changes. On occ2 indexes the
+    round-3 LAST-like automaton rides the same trips.
+  compaction: emitted candidates in (read, end) order.
+  round 1, backward: every candidate extended maximally to the left.
+  containment filter: a candidate is an SMEM iff its qbeg is strictly
+    below every later-ending candidate's qbeg within the same read.
+  round 2: split re-seed of long low-occurrence SMEMs from their midpoint
+    (forward walks with a floor, then the same backward walk).
+  merge: the three rounds' survivors sorted stably by (read, qbeg, qend).
+  occurrence expansion: per-SMEM subsampling (max_occ), then SA lookups.
+
+Torch has dynamic shapes, so every compaction is exact (nonzero on the
+emission mask, which keeps order). The JAX package's fixed pools, their
+overflow retry and learned sizes, and its staged lane compaction exist
+only for XLA's static shapes and are left out; its converged result is the
+untruncated one computed here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..index.device import DeviceFMIndex
+from . import fm as fmops
+
+BIG = 0x3FFFFFFF
+# how many walk trips run between checks of the all-dead exit (each check
+# is one device->host sync)
+_EXIT_CHECK = 4
+
+
+@dataclass(frozen=True)
+class SeedConfig:
+    min_seed_len: int = 19
+    max_occ: int = 500     # subsample SMEMs above this occurrence count
+    # vanilla bwa's 2nd/3rd seeding rounds (bwa_index/bwamem.c:114-162)
+    reseed: bool = False
+    split_factor: float = 1.5
+    split_width: int = 10
+    max_mem_intv: int = 20
+
+
+def _compact(mask, *fields):
+    """Order-preserving compaction of flat fields by mask."""
+    idx = mask.reshape(-1).nonzero().squeeze(1)
+    return idx, tuple(f.reshape(-1)[idx] for f in fields)
+
+
+def _init1(fm, b):
+    """Bi-interval (k, l, s) of the single base b (restart)."""
+    L2c = fmops._L2(fm)
+    bc = b.clamp(0, 3).long()
+    ik = L2c[bc] + 1
+    il = L2c[3 - bc] + 1
+    is_ = L2c[bc + 1] - (ik - 1)
+    return ik, il, is_
+
+
+def _forward_pass(fm, reads, lens, min_seed_len):
+    """Round-1 forward pass, one base per trip (indexes without occ2).
+    reads: (B, L) int32 codes (pad/amb = 4). Returns (start, k, s, emit),
+    each (B, L+1), the candidate of column i ending at i."""
+    B, L = reads.shape
+    dev = reads.device
+    dt = fmops.idx_dt(fm)
+    reads_pad = torch.cat(
+        [reads, torch.full((B, 1), 4, dtype=torch.int32, device=dev)], 1)
+    k = torch.zeros(B, dtype=dt, device=dev)
+    l = torch.zeros_like(k)
+    s = torch.zeros_like(k)
+    seg = torch.zeros(B, dtype=torch.int32, device=dev)
+    cands = []
+    for i in range(L + 1):
+        base = reads_pad[:, i]
+        valid = (i < lens) & (base < 4)
+        active = s > 0
+        k4, l4, s4 = fmops.forward_ext4_batch(fm, k, l, s)
+        bc = base.clamp(0, 3)
+        okk, okl = fmops._sel(k4, bc), fmops._sel(l4, bc)
+        oks = torch.where(valid, fmops._sel(s4, bc), 0)
+        emit = active & (oks != s) & (i >= min_seed_len)
+        cands.append((seg, k, s, emit))
+        ext = valid & active & (oks > 0)
+        restart = valid & ~ext
+        ik, il, is_ = _init1(fm, base)
+        zero = torch.zeros_like(k)
+        k = torch.where(ext, okk, torch.where(restart, ik, zero))
+        l = torch.where(ext, okl, torch.where(restart, il, zero))
+        s = torch.where(ext, oks, torch.where(restart, is_, zero))
+        seg = torch.where(ext, seg, i)
+    return tuple(torch.stack(c, dim=1) for c in zip(*cands))
+
+
+def _seed_strategy_pass(fm, reads, lens, min_len: int, max_intv: int):
+    """Vanilla round-3 LAST-like seeding as one forward pass (indexes
+    without occ2; bwa_index/bwt.c:434-455 under bwamem.c:144-158): a walk
+    from x emits ONE seed [x, i+1) at the first position where the
+    interval drops below max_intv with match length > min_len, then
+    restarts at i+1. Returns (x, k, s, emit), each (B, L); column i's
+    seed ends at i + 1."""
+    B, L = reads.shape
+    dev = reads.device
+    dt = fmops.idx_dt(fm)
+    x = torch.zeros(B, dtype=torch.int32, device=dev)
+    k = torch.zeros(B, dtype=dt, device=dev)
+    l = torch.zeros_like(k)
+    s = torch.zeros_like(k)
+    cands = []
+    for i in range(L):
+        b = reads[:, i]
+        bc = b.clamp(0, 3)
+        validb = (i < lens) & (b < 4)
+        walking = validb & (x < i)
+        k4, l4, s4 = fmops.forward_ext4_batch(fm, k, l, s)
+        kn, ln, sn = (fmops._sel(a, bc) for a in (k4, l4, s4))
+        emit = walking & (sn < max_intv) & (i - x >= min_len)
+        cands.append((x, kn, sn, emit))
+        start = validb & (x == i)
+        ik, il, is_ = _init1(fm, b)
+        cont = walking & ~emit
+        zero = torch.zeros_like(k)
+        k = torch.where(cont, kn, torch.where(start, ik, zero))
+        l = torch.where(cont, ln, torch.where(start, il, zero))
+        s = torch.where(cont, sn, torch.where(start, is_, zero))
+        x = torch.where(~validb | emit, i + 1, x)
+    return tuple(torch.stack(c, dim=1) for c in zip(*cands))
+
+
+def _forward_pass2(fm, reads, lens, min_seed_len, strategy=None):
+    """Round-1 forward pass over the occ2 pair table: each trip appends a
+    base PAIR with one fused row gather (fm.forward_ext2_batch) and emits
+    both positions' candidates; restarts mid-pair re-enter through the
+    2-mer bi-interval table. Emissions equal _forward_pass's.
+
+    strategy=(min_len, max_intv) also runs the round-3 automaton
+    (_seed_strategy_pass semantics) inside the same trips. Returns the
+    four round-1 planes (B, NP) plus, with a strategy, (x3, k3, s3, emit3)
+    planes (B, L)."""
+    B, L = reads.shape
+    dev = reads.device
+    T2 = (L + 2) // 2  # trips; positions covered: 0 .. 2*T2-1 >= L+1
+    NP = 2 * T2
+    reads_pad = torch.cat(
+        [reads, torch.full((B, NP - L), 4, dtype=torch.int32, device=dev)], 1)
+    dt = fmops.idx_dt(fm)
+    pat = fm.occ2_pat.to(dt)
+
+    k = torch.zeros(B, dtype=dt, device=dev)
+    l = torch.zeros_like(k)
+    s = torch.zeros_like(k)
+    seg = torch.zeros(B, dtype=torch.int32, device=dev)
+    x3 = torch.zeros(B, dtype=torch.int32, device=dev)
+    k3 = torch.zeros_like(k)
+    l3 = torch.zeros_like(k)
+    s3 = torch.zeros_like(k)
+    zero = torch.zeros_like(k)
+    c1, c3 = [], []
+
+    def pick(cond, a, cond2, b):
+        return torch.where(cond, a, torch.where(cond2, b, zero))
+
+    for it in range(T2):
+        i = 2 * it
+        b1 = reads_pad[:, i]
+        b2 = reads_pad[:, i + 1]
+        valid1 = (i < lens) & (b1 < 4)
+        valid2 = (i + 1 < lens) & (b2 < 4)
+        active = s > 0
+        (k1, l1, s1), (k2, l2, s2) = fmops.forward_ext2_batch(
+            fm, k, l, s, b1, b2)
+        if strategy is not None:
+            (k31, l31, s31), (k32, l32, s32) = fmops.forward_ext2_batch(
+                fm, k3, l3, s3, b1, b2)
+
+        # ---- sub-step A (position i) ----
+        s1v = torch.where(valid1, s1, zero)
+        emitA = active & (s1v != s) & (i >= min_seed_len)
+        c1.append((seg, k, s, emitA))
+        ext1 = valid1 & active & (s1 > 0)
+        restart1 = valid1 & ~ext1
+        ik1, il1, is1 = _init1(fm, b1)
+        kA = pick(ext1, k1, restart1, ik1)
+        lA = pick(ext1, l1, restart1, il1)
+        sA = pick(ext1, s1, restart1, is1)
+        segA = torch.where(ext1, seg, i)
+
+        # ---- sub-step B (position i+1) ----
+        # three sources: pair path (ext1), 2-mer table (restart1), dead
+        d12 = (b1.clamp(0, 3) * 4 + b2.clamp(0, 3)).long()
+        pk, pl, ps = pat[0][d12], pat[1][d12], pat[2][d12]
+        sB = pick(ext1, s2, restart1, ps)
+        kB = pick(ext1, k2, restart1, pk)
+        lB = pick(ext1, l2, restart1, pl)
+        activeB = sA > 0
+        sBv = torch.where(valid2, sB, zero)
+        emitB = activeB & (sBv != sA) & (i + 1 >= min_seed_len)
+        c1.append((segA, kA, sA, emitB))
+        ext2 = valid2 & activeB & (sB > 0)
+        restart2 = valid2 & ~ext2
+        ik2, il2, is2 = _init1(fm, b2)
+        k = pick(ext2, kB, restart2, ik2)
+        l = pick(ext2, lB, restart2, il2)
+        s = pick(ext2, sB, restart2, is2)
+        seg = torch.where(ext2, segA, i + 1)
+        if strategy is None:
+            continue
+
+        # ---- round-3 automaton, both sub-steps ----
+        min_len3, max_intv3 = strategy
+        walkA = valid1 & (x3 < i)
+        emit3A = walkA & (s31 < max_intv3) & (i - x3 >= min_len3)
+        c3.append((x3, k31, s31, emit3A))
+        startA = valid1 & (x3 == i)
+        contA3 = walkA & ~emit3A
+        k3A = pick(contA3, k31, startA, ik1)
+        l3A = pick(contA3, l31, startA, il1)
+        s3A = pick(contA3, s31, startA, is1)
+        x3A = torch.where(~valid1 | emit3A, i + 1, x3)
+        # sub-step B: pair path for contA3 lanes, 2-mer table for lanes
+        # that started at i, fresh start at i+1
+        k3B = pick(contA3, k32, startA, pk)
+        l3B = pick(contA3, l32, startA, pl)
+        s3B = pick(contA3, s32, startA, ps)
+        walkB = valid2 & (x3A < i + 1)
+        emit3B = walkB & (s3B < max_intv3) & (i + 1 - x3A >= min_len3)
+        c3.append((x3A, k3B, s3B, emit3B))
+        startB = valid2 & (x3A == i + 1)
+        contB3 = walkB & ~emit3B
+        k3 = pick(contB3, k3B, startB, ik2)
+        l3 = pick(contB3, l3B, startB, il2)
+        s3 = pick(contB3, s3B, startB, is2)
+        x3 = torch.where(~valid2 | emit3B, i + 2, x3A)
+
+    planes = tuple(torch.stack(c, dim=1) for c in zip(*c1))
+    if strategy is None:
+        return planes
+    r3 = tuple(torch.stack(c, dim=1)[:, :L] for c in zip(*c3))
+    return planes + (r3,)
+
+
+def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None):
+    """Extend each candidate maximally to the left (the FM walk, k-side
+    interval only). Flat (P,) lanes in (group, end) order.
+
+    floor: optional (P,) minimum interval size to keep extending
+    (bwt_smem1a's min_intv; default 1). group: optional (P,) segment key
+    of the contained-walker early kill (defaults to rid).
+
+    Early kill: when a lane reaches the same (qb, k, s) as the next lane
+    of its group, it is contained and stops walking — the containment
+    filter drops it either way; this only saves trips."""
+    B, L = reads.shape
+    P = qbeg.shape[0]
+    reads_flat = reads.reshape(-1)
+    floor = torch.ones_like(s) if floor is None else floor.to(s.dtype)
+    group = rid if group is None else group
+    same_grp = torch.cat([group[1:] == group[:-1],
+                          torch.zeros(1, dtype=torch.bool,
+                                      device=group.device)])
+    qb, kk, ss = qbeg.clone(), k.clone(), s.clone()
+    done = torch.zeros(P, dtype=torch.bool, device=qb.device)
+
+    def nxt(a):
+        return torch.cat([a[1:], a[-1:]])
+
+    for it in range(L):
+        if it % _EXIT_CHECK == 0 and bool(done.all()):
+            break
+        j = qb - 1
+        base = reads_flat[(rid.long() * L + j).clamp(0, B * L - 1)]
+        can = ~done & (j >= 0) & (base < 4)
+        kq = torch.where(can, kk, 0)
+        sq = torch.where(can, ss, 1)
+        nk, ns = fmops.backward_ext_ks_batch(
+            fm, kq, sq, torch.where(can, base.clamp(0, 3), 0))
+        ok = can & (ns >= floor)
+        qb = torch.where(ok, j, qb)
+        kk = torch.where(ok, nk, kk)
+        ss = torch.where(ok, ns, ss)
+        same = same_grp & (nxt(qb) == qb) & (nxt(ss) == ss) & (nxt(kk) == kk)
+        done = ~ok | same
+    return qb, kk, ss
+
+
+def _segmented_suffix_min(v, seg):
+    """For each i: min(v[j] for j > i in i's run of equal seg), BIG if
+    none. v, seg: (P,) ints."""
+    P = v.shape[0]
+    if P == 0:
+        return v
+    vr = v.flip(0).to(torch.int64)
+    sr = seg.flip(0)
+    run = torch.cat([torch.zeros(1, dtype=torch.int64, device=v.device),
+                     (sr[1:] != sr[:-1]).to(torch.int64)]).cumsum(0)
+    # runs later in the reversed order carry smaller offsets, so a running
+    # min never reaches back across a run boundary
+    off = (run[-1] - run) << 32
+    inc = ((vr + off).cummin(0).values - off).flip(0)
+    big = torch.full((1,), BIG, dtype=torch.int64, device=v.device)
+    nxt_v = torch.cat([inc[1:], big])
+    nxt_same = torch.cat([seg[1:] == seg[:-1],
+                          torch.zeros(1, dtype=torch.bool, device=v.device)])
+    return torch.where(nxt_same, nxt_v, BIG)
+
+
+def _containment_filter(qbeg, qend, grp, min_seed_len):
+    keep = qbeg.to(torch.int64) < _segmented_suffix_min(qbeg, grp)
+    return keep & ((qend - qbeg) >= min_seed_len)
+
+
+def _reseed_forward(fm, reads, lens, lrid, lx, lfloor, min_seed_len: int):
+    """Round-2 split re-seed forward walks (vanilla bwt_smem1a's forward
+    loop with min_intv = parent occ + 1 from the parent SMEM's midpoint,
+    bwa_index/bwamem.c:133-141, bwa_index/bwt.c:381-394).
+
+    One lane per qualifying parent SMEM. Each trip appends one base (two
+    on occ2 indexes) and records a candidate (k/s before the step, end =
+    current position) whenever the interval size changes — including the
+    end-of-walk push at read end, N bases and below-floor death.
+    Emissions are trip-indexed: column j of the (R, L+2) planes holds the
+    emission of relative offset j. Returns (kb, sb, eb, filled)."""
+    R = lrid.shape[0]
+    B, L = reads.shape
+    dev = reads.device
+    dt = fmops.idx_dt(fm)
+    reads_flat = reads.reshape(-1)
+    lens_l = lens[lrid.long()]
+    b0 = reads_flat[(lrid.long() * L + lx).clamp(0, B * L - 1)]
+    k, l, s = _init1(fm, b0)
+    alive = (b0 < 4) & (lx < lens_l)
+    T = L + 2  # columns indexed by relative trip offset j in [1, L+1]
+    lfloor = lfloor.to(dt)
+    kb = torch.zeros((R, T), dtype=dt, device=dev)
+    sb = torch.zeros((R, T), dtype=dt, device=dev)
+    eb = torch.zeros((R, T), dtype=torch.int32, device=dev)
+    fill = torch.zeros((R, T), dtype=torch.bool, device=dev)
+    zero = torch.zeros_like(k)
+
+    def fetch(i):
+        b = reads_flat[(lrid.long() * L + i).clamp(0, B * L - 1)]
+        return torch.where(i < lens_l, b, 4)
+
+    def push(j, emit, kv, sv, ev):
+        kb[:, j] = torch.where(emit, kv, zero)
+        sb[:, j] = torch.where(emit, sv, zero)
+        eb[:, j] = torch.where(emit, ev, 0)
+        fill[:, j] = emit
+
+    j = 1
+    trip = 0
+    while j <= L:
+        if trip % _EXIT_CHECK == 0 and not bool(alive.any()):
+            break
+        trip += 1
+        if fm.has_occ2:
+            i1 = lx + j
+            i2 = i1 + 1
+            b1 = fetch(i1)
+            b2 = fetch(i2)
+            v1 = (i1 < lens_l) & (b1 < 4)
+            v2 = (i2 < lens_l) & (b2 < 4)
+            (k1, l1, s1), (k2, l2, s2) = fmops.forward_ext2_batch(
+                fm, k, l, s, b1.clamp(0, 3), b2.clamp(0, 3))
+            # sub-step 1 (position i1): emit against the pre-pair state
+            s1n = torch.where(v1 & alive, s1, zero)
+            emit1 = alive & (s1n != s) & (i1 >= min_seed_len)
+            push(j, emit1, k, s, i1)
+            alive1 = alive & v1 & (s1n >= lfloor)
+            # sub-step 2 (position i2): lanes that survived sub-step 1
+            s2n = torch.where(v2 & alive1, s2, zero)
+            emit2 = alive1 & (s2n != s1n) & (i2 >= min_seed_len)
+            push(j + 1, emit2, k1, s1n, i2)
+            alive2 = alive1 & v2 & (s2n >= lfloor)
+            # freeze-on-death: a lane dead at sub-step 1 keeps the
+            # pre-pair state; dead at sub-step 2 keeps the one-append one
+            k = torch.where(alive2, k2, torch.where(alive1, k1, k))
+            l = torch.where(alive2, l2, torch.where(alive1, l1, l))
+            s = torch.where(alive2, s2n, torch.where(alive1, s1n, s))
+            alive = alive2
+            j += 2
+        else:
+            i = lx + j
+            b = fetch(i)
+            validb = (i < lens_l) & (b < 4)
+            k4, l4, s4 = fmops.forward_ext4_batch(fm, k, l, s)
+            bc = b.clamp(0, 3)
+            kn, ln = fmops._sel(k4, bc), fmops._sel(l4, bc)
+            sn = torch.where(validb & alive, fmops._sel(s4, bc), zero)
+            emit = alive & (sn != s) & (i >= min_seed_len)
+            push(j, emit, k, s, i)
+            alive2 = alive & validb & (sn >= lfloor)
+            k = torch.where(alive2, kn, k)
+            l = torch.where(alive2, ln, l)
+            s = torch.where(alive2, sn, s)
+            alive = alive2
+            j += 1
+    return kb, sb, eb, fill
+
+
+def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
+    """Per-SMEM occurrence list: subsample with step s // max_occ when
+    s > max_occ (at most max_occ entries, the mem_chain rule,
+    src/bwamem.c:426-431), then resolve each row's text position with an
+    SA walk. Seeds come out in (candidate, SA rank) order."""
+    s_v = torch.where(keep, s, 0).to(torch.int64)
+    step = torch.where(s_v > max_occ, s_v // max_occ, 1)
+    count = torch.where(s_v > 0, (s_v + step - 1) // step, 0)
+    count = count.clamp(max=max_occ)
+    cand = torch.repeat_interleave(
+        torch.arange(count.shape[0], device=s.device), count)
+    first = count.cumsum(0) - count
+    off = torch.arange(cand.shape[0], device=s.device) - first[cand]
+    rows = k[cand].to(torch.int64) + off * step[cand]
+    rbeg = fmops.sa_lookup_batch(fm, rows)
+    return dict(read_id=rid[cand].to(torch.int32),
+                qbeg=qbeg[cand].to(torch.int32),
+                qend=qend[cand].to(torch.int32), rbeg=rbeg, n_occ=s[cand])
+
+
+def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
+                    cfg: SeedConfig = SeedConfig()):
+    """End-to-end batched SMEM seeding.
+
+    reads: (B, L) int codes (amb/pad = 4); lens: (B,) int. Returns flat
+    seed arrays sorted by (read, qend, SA rank) — or, with cfg.reseed, by
+    (read, qbeg, qend, SA rank): read_id, qbeg, qend, rbeg (doubled
+    coordinates), n_occ."""
+    reads = reads.to(torch.int32)
+    lens = lens.to(torch.int32)
+    B, L = reads.shape
+    dev = reads.device
+    dt = fmops.idx_dt(fm)
+    fuse_r3 = cfg.reseed and cfg.max_mem_intv > 0 and fm.has_occ2
+    r3_planes = None
+    if fm.has_occ2:
+        out = _forward_pass2(
+            fm, reads, lens, cfg.min_seed_len,
+            strategy=((cfg.min_seed_len, cfg.max_mem_intv)
+                      if fuse_r3 else None))
+        start, k, s, emit = out[:4]
+        if fuse_r3:
+            r3_planes = out[4]
+    else:
+        start, k, s, emit = _forward_pass(fm, reads, lens, cfg.min_seed_len)
+    NP = emit.shape[1]
+    end = torch.arange(NP, dtype=torch.int32, device=dev).expand(B, NP)
+    idx, (start, end, k, s) = _compact(emit, start, end, k, s)
+    rid = (idx // NP).to(torch.int32)
+    qbeg, k, s = _backward_pass(fm, reads, rid, start, k, s)
+    keep = _containment_filter(qbeg, end, rid, cfg.min_seed_len)
+    if cfg.reseed:
+        # ---- round 2: split re-seed of long low-occ SMEMs ----
+        split_len = int(cfg.min_seed_len * cfg.split_factor + 0.499)
+        qualify = keep & (end - qbeg >= split_len) & (s <= cfg.split_width)
+        _, (lrid, lx, lfloor) = _compact(
+            qualify, rid, (qbeg + end) >> 1, (s + 1).to(dt))
+        kb, sb, eb, filled = _reseed_forward(
+            fm, reads, lens, lrid, lx, lfloor, cfg.min_seed_len)
+        E = kb.shape[1]
+        lane = torch.arange(lrid.shape[0], dtype=torch.int32, device=dev)
+
+        def flat(a):
+            return a[:, None].expand(a.shape[0], E)
+
+        _, (rid2, lane2, x2, floor2, k2, s2, end2) = _compact(
+            filled, flat(lrid), flat(lane), flat(lx), flat(lfloor), kb, sb,
+            eb)
+        qb2, k2, s2 = _backward_pass(fm, reads, rid2, x2, k2, s2,
+                                     floor=floor2, group=lane2)
+        keep2 = _containment_filter(qb2, end2, lane2, cfg.min_seed_len)
+        parts = [(rid2, qb2, end2, k2, s2, keep2)]
+        # ---- round 3: LAST-like forward seeds ----
+        if cfg.max_mem_intv > 0:
+            if r3_planes is None:
+                r3_planes = _seed_strategy_pass(
+                    fm, reads, lens, cfg.min_seed_len, cfg.max_mem_intv)
+            x3p, k3p, s3p, emit3 = r3_planes
+            L3 = emit3.shape[1]
+            idx3, (qb3, k3, s3) = _compact(emit3, x3p, k3p, s3p)
+            rid3 = (idx3 // L3).to(torch.int32)
+            end3 = (idx3 % L3 + 1).to(torch.int32)
+            parts.append((rid3, qb3, end3, k3, s3, s3 > 0))
+        # ---- merge + vanilla (qbeg, qend) interval sort ----
+        r1 = (rid, qbeg, end, k, s, keep)
+        cols = [torch.cat([c.to(r1[i].dtype) for c in col])
+                for i, col in enumerate(zip(r1, *parts))]
+        _, (rid, qbeg, end, k, s) = _compact(cols[5], *cols[:5])
+        # the JAX twin's key width switch (int32 keys when they fit)
+        if B * (L + 2) * (L + 2) <= (1 << 30) + (1 << 29):
+            kdt = torch.int32
+        else:
+            kdt = torch.int64
+        span = L + 2
+        key = ((rid.to(kdt) * span + qbeg.clamp(0, L + 1).to(kdt)) * span
+               + end.clamp(0, L + 1).to(kdt))
+        perm = torch.argsort(key, stable=True)
+        rid, qbeg, end, k, s = (a[perm] for a in (rid, qbeg, end, k, s))
+        keep = torch.ones_like(rid, dtype=torch.bool)
+    return _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
