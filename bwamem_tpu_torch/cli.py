@@ -1,8 +1,9 @@
-"""Command-line interface: `index` and single-end `align` (`gase_aln` and
-`mem` accepted as aliases), with the JAX package's flags plus --device.
+"""Command-line interface: `index` and `align` of single-end reads or of
+pairs (two files, or one interleaved file with -p; `gase_aln` and `mem`
+accepted as aliases), with the JAX package's flags plus --device.
 
-Paired-end input, multi-device runs and the seeding/filter variants that
-are not ported yet exit with a one-line error naming the ROADMAP item.
+Multi-device runs and the seeding/filter variants that are not ported yet
+exit with a one-line error naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -159,7 +160,7 @@ def main(argv=None) -> int:
                     help="suffix-array sampling interval (power of 2)")
 
     for name in ("align", "gase_aln", "mem"):
-        pa = sub.add_parser(name, help="align single-end reads")
+        pa = sub.add_parser(name, help="align single- or paired-end reads")
         _add_align_args(pa)
 
     args = ap.parse_args(argv)
@@ -204,7 +205,9 @@ def _sam_header(idx, rg_line: str | None, cmdline: str) -> list[str]:
 
 def _options(args):
     """MemOptions from the align flags (the JAX CLI's rules)."""
-    from .pipeline.options import MemOptions, MEM_F_ALL, MEM_F_SOFTCLIP
+    from .pipeline.options import (MemOptions, MEM_F_ALL, MEM_F_NO_RESCUE,
+                                   MEM_F_NOPAIRING, MEM_F_PE,
+                                   MEM_F_SOFTCLIP)
 
     opt = MemOptions.vanilla() if args.vanilla else MemOptions()
     opt.w = args.band_width if not args.vanilla or args.band_width != 300 \
@@ -318,6 +321,12 @@ def _options(args):
         opt.mask_level = args.mask_level
     if args.softclip_supp:
         opt.flag |= MEM_F_SOFTCLIP
+    if args.mates is not None or args.smart_pairing:
+        opt.flag |= MEM_F_PE
+    if args.skip_pairing:
+        opt.flag |= MEM_F_NOPAIRING
+    if args.skip_rescue:
+        opt.flag |= MEM_F_NO_RESCUE
     rg_id = None
     if args.rg_line:
         for f in args.rg_line.replace("\\t", "\t").split("\t"):
@@ -328,10 +337,6 @@ def _options(args):
 
 
 def cmd_align(args) -> int:
-    if args.mates is not None or args.smart_pairing:
-        raise NotImplementedError(
-            "paired-end alignment is not ported yet (ROADMAP queue A: "
-            "PE/pairing + swalign)")
     if args.n_chips != 1 or args.n_hosts > 1:
         raise NotImplementedError(
             "--n-chips/--n-hosts other than 1 are not ported yet (ROADMAP "
@@ -352,6 +357,7 @@ def cmd_align(args) -> int:
     from .utils.timing import Timings
 
     opt = _options(args)
+    paired = args.mates is not None or args.smart_pairing
     idx = FMIndex.load(args.index_prefix + ".bmt")
     if getattr(args, "ignore_alt", False) and idx.ann.is_alt:
         # -j: treat ALT contigs as part of the primary assembly
@@ -375,6 +381,17 @@ def cmd_align(args) -> int:
                               max_mem_intv=opt.max_mem_intv)
         aligner = MemAligner(opt, idx, seed_cfg=seed_cfg,
                              device=args.device)
+        if args.insert_spec:
+            from .pipeline.pairing import pestat_from_spec
+
+            aligner.pes_fixed = pestat_from_spec(args.insert_spec)
+            fr = aligner.pes_fixed[1]
+            print(f"[{PROG}] fixed insert-size model (FR): avg={fr.avg:.1f} "
+                  f"std={fr.std:.1f} bounds=[{fr.low},{fr.high}]",
+                  file=sys.stderr)
+        records = read_fastx(args.reads)
+        if args.mates is not None:
+            records = _interleave(records, read_fastx(args.mates))
         out = open(args.output, "w") if args.output else sys.stdout
         timings = Timings()
         cmdline = f"{PROG} " + " ".join(sys.argv[1:])
@@ -388,9 +405,10 @@ def cmd_align(args) -> int:
                     for hl in hf:
                         if hl.strip():
                             out.write(hl.rstrip("\n") + "\n")
-        n = run_pipeline(read_fastx(args.reads), aligner,
+        n = run_pipeline(records, aligner,
                          opt.chunk_size * max(args.n_threads, 1), out,
-                         timings=timings, host_pool=host_pool,
+                         timings=timings, paired=paired,
+                         host_pool=host_pool,
                          lookahead=0 if args.no_mt_io else 2)
     finally:
         host_pool.close()
@@ -412,6 +430,16 @@ def cmd_align(args) -> int:
     if out is not sys.stdout:
         out.close()
     return 0
+
+
+def _interleave(it1, it2):
+    try:
+        for a, b in zip(it1, it2, strict=True):
+            yield a
+            yield b
+    except ValueError:
+        raise SystemExit(
+            f"[{PROG}] error: paired files have different read counts")
 
 
 if __name__ == "__main__":

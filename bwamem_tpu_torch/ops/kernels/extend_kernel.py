@@ -4,8 +4,8 @@ PyTorch version.
 The kernel (csrc/extend_kernel.cu) replaces the Pallas TPU kernel
 bwamem_tpu/ops/pallas/extend_kernel.py:_make_kernel. It is compiled with
 nvcc for sm_90a into the package's `_build/` directory on first use
-(rebuilt when the source is newer than the library) and called through a
-plain C entry point with ctypes.
+(ops/kernels/build.py) and called through a plain C entry point with
+ctypes.
 
 `extend_batch` launches the kernel for CUDA tensors and runs
 `extend_batch_plain` — a torch port of the row loop in
@@ -15,24 +15,18 @@ back from one to the other.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
+
+from . import build as _kbuild
+from .build import check as _check
 
 NEG = -0x40000000
 _PLAIN_BLOCK = 16384  # jobs per step of the plain version
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "extend_kernel.cu"
-_BUILD_DIR = _PKG / "_build"
-_LIB_PATH = _BUILD_DIR / "libextend_kernel.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = _kbuild.CSRC / "extend_kernel.cu"
+_LIB_PATH = _kbuild.BUILD_DIR / "libextend_kernel.so"
 
 # kernel launches since import (or the last reset by the caller); the
 # wrapper adds one per launch and nowhere else
@@ -43,35 +37,15 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and Path(cand).exists():
-            return cand
-    raise RuntimeError("nvcc not found: the extension kernel needs the CUDA "
-                       "toolkit (set CUDA_HOME)")
-
-
 def build() -> float:
     """Compile the kernel library if it is missing or older than its
     source. Returns the seconds spent compiling (0 when up to date); the
     compiler's output (register and spill report) is kept in BUILD_LOG."""
     global BUILD_LOG
-    if (_LIB_PATH.exists()
-            and _LIB_PATH.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, _LIB_PATH)  # atomic: concurrent builders never see a
-    #                             half-written library
-    BUILD_LOG = res.stdout + res.stderr
-    return time.perf_counter() - t0
+    secs, log = _kbuild.build(SOURCE, _LIB_PATH)
+    if log is not None:
+        BUILD_LOG = log
+    return secs
 
 
 def _load():
@@ -92,13 +66,6 @@ def _load():
 def _fields(out):
     return dict(score=out[:, 0], qle=out[:, 1], tle=out[:, 2],
                 gscore=out[:, 3], gtle=out[:, 4], max_off=out[:, 5])
-
-
-def _check(x, name, dtype, shape):
-    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
-                         f"{x.dtype} {tuple(x.shape)} "
-                         f"contiguous={x.is_contiguous()}")
 
 
 def extend_batch(query, target, qlen, tlen, h0, mat, params):

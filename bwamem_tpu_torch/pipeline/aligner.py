@@ -1,6 +1,6 @@
-"""End-to-end single-end alignment on one device (torch).
+"""End-to-end single- and paired-end alignment on one device (torch).
 
-Port of the native SE path of bwamem_tpu/pipeline/aligner.py:MemAligner:
+Port of the native path of bwamem_tpu/pipeline/aligner.py:MemAligner:
 
   device:  batched SMEM seeding over the whole read batch (ops/seeding)
   host:    native chaining + chain->extension-job construction (C++ core)
@@ -8,6 +8,10 @@ Port of the native SE path of bwamem_tpu/pipeline/aligner.py:MemAligner:
            the query/target windows from the uploaded reads and the packed
            genome, runs the dense extension kernel, applies end_choice
   host:    L/R merge, native dedup/patch, then mark-primary + SAM text
+  PE:      insert-size inference on the host, then mate rescue: window
+           bounds on the host, ONE local-SW launch per chunk on windows
+           gathered on the device (pipeline/pairing.py), results applied
+           on the host; native pairing + SAM text
 
 The reads buffer uploaded for seeding travels WITH its batch (in the seed
 arrays dict), never as aligner state: run_pipeline runs two collector
@@ -25,14 +29,15 @@ from ..index.format import FMIndex
 from ..ops.extend import ExtendParams, extend_choose_desc
 from ..ops.seeding import SeedConfig, smem_seed_batch
 from ..utils.shapes import bucket_len, bucket_read_len
-from .options import MemOptions
+from .options import MEM_F_NO_RESCUE, MemOptions
 
 _LONG_READ = 500  # the JAX twin's per-seed SW filter threshold
 
 
 class MemAligner:
     """Index in device memory, batched device stages, host post-processing.
-    Single-end, default seeding (SMEM + re-seed rounds), native host core."""
+    Single- and paired-end, default seeding (SMEM + re-seed rounds), native
+    host core."""
 
     def __init__(self, opt: MemOptions, idx: FMIndex,
                  fm: DeviceFMIndex | None = None,
@@ -45,6 +50,7 @@ class MemAligner:
         self.stats = {"n_reads": 0, "n_seeds": 0, "n_extensions": 0}
         # optional stage timing, set by run_pipeline
         self.timings = None
+        self.pes_fixed = None  # -I fixed insert-size model
         self.fm = fm or DeviceFMIndex.from_host(idx, self.device)
         self.seed_cfg = seed_cfg or SeedConfig(
             min_seed_len=opt.min_seed_len, max_occ=opt.max_occ,
@@ -291,10 +297,36 @@ class MemAligner:
         with self._span("native_total"):
             return self._collect_native(seqs, seed_arr)
 
-    def collect_pairs_batch(self, seqs, pes=None):
-        raise NotImplementedError(
-            "paired-end alignment is not ported yet (ROADMAP queue A: "
-            "PE/pairing + swalign)")
+    def collect_pairs_batch(self, seqs: list[np.ndarray],
+                            pes: list | None = None):
+        """PE collection: regions + insert-size inference + batched mate
+        rescue (one local-SW launch per chunk). Returns (pair_regs, pes)
+        for the finalization stage."""
+        from .pairing import mem_pe_rescue_batch, mem_pestat
+
+        opt, idx = self.opt, self.idx
+        if len(seqs) % 2:
+            raise SystemExit(
+                "[bwamem-tpu-torch] error: paired-end input has an odd "
+                "number of reads — not valid interleaved PE data")
+        # materialize ONCE: pestat iteration + pair grouping below would
+        # otherwise each rebuild the objects per read
+        per_read_regs = self.collect_regs_batch(seqs).to_lists()
+        if pes is None:
+            with self._span("pestat"):
+                pes = self.pes_fixed or mem_pestat(opt, idx.l_pac,
+                                                   per_read_regs)
+        n_pairs = len(seqs) >> 1
+        pair_seqs = [(seqs[i << 1], seqs[i << 1 | 1])
+                     for i in range(n_pairs)]
+        pair_regs = [[per_read_regs[i << 1], per_read_regs[i << 1 | 1]]
+                     for i in range(n_pairs)]
+        if not (opt.flag & MEM_F_NO_RESCUE):
+            with self._span("pe_rescue"):
+                mem_pe_rescue_batch(opt, idx, pes, pair_seqs, pair_regs,
+                                    dev=self.fm, span=self._span,
+                                    stats=self.stats)
+        return pair_regs, pes
 
     def emit_sam_batch(self, names, seqs, quals, per_read_regs,
                        n_processed: int = 0, comments=None) -> list[str]:
@@ -320,3 +352,17 @@ class MemAligner:
         per_read_regs = self.collect_regs_batch(seqs)
         return self.emit_sam_batch(names, seqs, quals, per_read_regs,
                                    n_processed)
+
+    def align_pairs_batch(self, names: list[str], seqs: list[np.ndarray],
+                          quals: list[str | None] | None = None,
+                          n_processed: int = 0,
+                          pes: list | None = None) -> list[str]:
+        """Paired-end: `seqs` is interleaved (read1, read2, ...). Insert
+        sizes are inferred from this chunk unless `pes` is given or
+        pes_fixed is set."""
+        from .hostpool import _emit_pe
+
+        quals = quals or [None] * len(seqs)
+        pair_regs, pes = self.collect_pairs_batch(seqs, pes)
+        return _emit_pe(self.opt, self.idx, names, seqs, quals, pair_regs,
+                        pes, n_processed >> 1)

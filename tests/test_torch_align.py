@@ -109,13 +109,12 @@ def test_unported_inputs_raise(fixture2):
     al = MemAligner(MemOptions(), idx, device="cpu")
     with pytest.raises(NotImplementedError):
         al.align_batch(["r"], [np.zeros(600, np.uint8)])
-    with pytest.raises(NotImplementedError):
-        al.collect_pairs_batch([seq, seq])
-    res = subprocess.run(
-        [sys.executable, "-m", "bwamem_tpu_torch", "align", "--device",
-         "cpu", str(d / "idx"), str(d / "r.fq"), str(d / "r.fq")],
-        env=env, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 1 and "not ported yet" in res.stderr
+    for flags in (["--n-chips", "2"], ["-F"]):
+        res = subprocess.run(
+            [sys.executable, "-m", "bwamem_tpu_torch", "align", "--device",
+             "cpu", *flags, str(d / "idx"), str(d / "r.fq"), str(d / "r.fq")],
+            env=env, capture_output=True, text=True, timeout=120)
+        assert res.returncode == 1 and "not ported yet" in res.stderr, flags
 
 
 def test_cuda_device_without_gpu_exits(fixture2):

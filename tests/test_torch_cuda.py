@@ -1,8 +1,10 @@
-"""The extension kernel on the card: exact against its plain PyTorch
-version for all four (opt_ext, zdrop > 0) variants at the main path's
-widths, one launch counted per call, the wrapper's input checks, and the
-banded routing's refusal. Every test needs an NVIDIA GPU (marker `cuda`)
-and skips without one.
+"""The kernels on the card. K1 (extension): exact against its plain
+PyTorch version for all four (opt_ext, zdrop > 0) variants at the main
+path's widths, one launch counted per call, the wrapper's input checks,
+and the banded routing's refusal. K2 (local SW): exact against its plain
+version at the rescue path's widths and two others, with and without
+rev_skip, one launch per call, the wrapper's input checks. Every test
+needs an NVIDIA GPU (marker `cuda`) and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without them:
@@ -20,7 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from bwamem_tpu_torch.ops import extend  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import extend_kernel  # noqa: E402
-from chip_smoke import make_jobs  # noqa: E402
+from bwamem_tpu_torch.ops.kernels import swalign_kernel  # noqa: E402
+from chip_smoke import make_jobs, make_sw_jobs  # noqa: E402
 
 pytestmark = [
     pytest.mark.cuda,
@@ -70,3 +73,41 @@ def test_banded_routing_is_not_ported():
     p = extend.ExtendParams(w=20, opt_ext=True)  # band 128 < dense row 512
     with pytest.raises(NotImplementedError):
         extend.extend_batch_auto(*args, p)
+
+
+def _sw_args(n, qmax, tmax, seed=6, minsc=19):
+    rng = np.random.default_rng(seed)
+    q, t, ql, tl = make_sw_jobs(rng, n, qmax, tmax)
+    wide = rng.random(n) < 0.3  # queries across the whole width too
+    ql[5:][wide[5:]] = rng.integers(1, qmax + 1, int(wide[5:].sum()))
+    return [torch.from_numpy(a) for a in (
+        q, t, ql, tl, np.full(n, minsc, np.int32),
+        extend.make_score_matrix(1, 4))]
+
+
+@pytest.mark.parametrize("rev_skip", [0, 19])
+@pytest.mark.parametrize("n,qmax,tmax", [(1200, 192, 768), (1200, 40, 80),
+                                         (300, 600, 1024)])
+def test_sw_kernel_matches_plain(rev_skip, n, qmax, tmax):
+    args = _sw_args(n, qmax, tmax)
+    gaps = (6, 1, 6, 1, 1, rev_skip)
+    want = swalign_kernel.sw_align_batch_plain(*args, *gaps)
+    before = swalign_kernel.LAUNCHES
+    got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
+    torch.cuda.synchronize()
+    assert swalign_kernel.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sw_wrapper_checks_inputs():
+    args = [a.cuda() for a in _sw_args(64, 48, 96)]
+    gaps = (6, 1, 6, 1, 1)
+    with pytest.raises(ValueError):  # int32 query: the kernel takes int8
+        swalign_kernel.sw_align_batch(args[0].int(), *args[1:], *gaps)
+    with pytest.raises(ValueError):  # non-contiguous target
+        swalign_kernel.sw_align_batch(args[0], args[1].t().contiguous().t(),
+                                      *args[2:], *gaps)
+    empty = [a[:0] for a in args[:5]] + [args[5]]
+    before = swalign_kernel.LAUNCHES
+    out = swalign_kernel.sw_align_batch(*empty, *gaps)
+    assert out.shape == (6, 0) and swalign_kernel.LAUNCHES == before

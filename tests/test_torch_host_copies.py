@@ -43,6 +43,30 @@ def test_copy_matches_original(mod):
     assert _read("bwamem_tpu_torch", mod) == want
 
 
+# pipeline/pairing.py: every top-level statement equals the original's
+# except the rescue launch, which the port runs on its own device arm
+PAIRING_REWRITTEN = ("_use_desc_rescue", "_run_sw_jobs")
+
+
+def _top_level(src):
+    """(name, source segment) of each top-level statement."""
+    import ast
+
+    return [(getattr(node, "name", None), ast.get_source_segment(src, node))
+            for node in ast.parse(src).body]
+
+
+def test_pairing_matches_original_but_the_rescue_launch():
+    want = _top_level(_read("bwamem_tpu", "pipeline/pairing.py"))
+    got = _top_level(_read("bwamem_tpu_torch", "pipeline/pairing.py"))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, seg_got), (_, seg_want) in zip(got, want):
+        if name in PAIRING_REWRITTEN:
+            assert "jax" not in seg_got, name
+        else:
+            assert seg_got == seg_want, name
+
+
 def test_options_take_the_ports_score_matrix():
     """options.py's `from ..ops.extend import make_score_matrix` resolves to
     the port's ops/extend.py, with the same matrix."""

@@ -1,7 +1,10 @@
 """The port never imports jax or the JAX package, not even indirectly: in a
 subprocess whose import system refuses `jax*` and `bwamem_tpu` (but not
-`bwamem_tpu_torch`), import every module of the port, build an index and
-align single-end reads with --device cpu through the CLI."""
+`bwamem_tpu_torch`), import every module of the port, build an index,
+align single-end reads with --device cpu through the CLI, and align pairs
+from two files whose victims (read 2 without a seed) only mate rescue can
+place: the rescue's imports happen inside functions, so only a rescue that
+runs can show that none of them reaches jax."""
 import subprocess
 import sys
 import textwrap
@@ -44,6 +47,13 @@ SCRIPT = textwrap.dedent(r"""
     assert main(["index", d + "/ref.fa", "-p", d + "/idx"]) == 0
     assert main(["align", "--device", "cpu", d + "/idx", d + "/r.fq",
                  "-o", d + "/out.sam"]) == 0
+
+    import chip_smoke
+    from bwamem_tpu_torch.io.fastx import _CODE_LUT
+    g = _CODE_LUT[np.frombuffer(contigs[0][1].encode(), np.uint8)]
+    chip_smoke.make_pairs(d, g, 24, 4, victim_every=6)
+    assert main(["align", "--device", "cpu", d + "/idx", d + "/r1.fq",
+                 d + "/r2.fq", "-o", d + "/pe.sam"]) == 0
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] == "bwamem_tpu" or m.startswith("jax"))
     assert not bad, bad
@@ -61,3 +71,10 @@ def test_port_runs_with_jax_refused(tmp_path):
     recs = [ln for ln in sam if not ln.startswith("@")]
     assert len(recs) >= 12
     assert sum(ln.split("\t")[2] != "*" for ln in recs) >= 11
+    pe = [ln.split("\t") for ln in
+          (tmp_path / "pe.sam").read_text().splitlines()
+          if not ln.startswith("@")]
+    victims = [f for f in pe if f[0].endswith("_1")
+               and int(f[1]) & 0x80 and not int(f[1]) & 0x900]
+    assert len(victims) == 4
+    assert all(not int(f[1]) & 4 for f in victims)  # placed by rescue
