@@ -2,8 +2,8 @@
 pairs (two files, or one interleaved file with -p; `gase_aln` and `mem`
 accepted as aliases), with the JAX package's flags plus --device.
 
-Multi-device runs and the seeding/filter variants that are not ported yet
-exit with a one-line error naming the ROADMAP item.
+Multi-device runs and the seeding variants that are not ported yet (-u
+2/3/4, -g) exit with a one-line error naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -345,9 +345,6 @@ def cmd_align(args) -> int:
         raise NotImplementedError(
             "-u 2/3/4 and -g are not ported yet (ROADMAP queue A: seeding "
             "variants)")
-    if args.shd_filter:
-        raise NotImplementedError(
-            "-F is not ported yet (ROADMAP queue A: seed filters/shd/banded)")
 
     from .index.format import FMIndex
     from .io.fastx import read_fastx

@@ -222,7 +222,10 @@ cudaError_t launch(const void* q, const void* t, const void* qlen,
   while (warps > 1 && warps * per_warp > (size_t)kMaxSmemBytes) --warps;
   const size_t smem = warps * per_warp;
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  // the static smat counts against the same 48 KB default: at exactly
+  // 48 KB of row maxima (TMAX 3072) the launch would be refused, so the
+  // dynamic limit is always raised
+  {
     const cudaError_t err = cudaFuncSetAttribute(
         sw_local_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

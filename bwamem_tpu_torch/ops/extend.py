@@ -2,9 +2,10 @@
 reference's decoy_cpu_align -> ksw_extend2): one-sided affine-gap
 extension seeded with h0, reporting the best local cell, the best
 to-query-end cell and max_off. The DP itself is the dense kernel in
-ops/kernels/extend_kernel.py; this module holds its parameters, the
-dispatch, the descriptor window gathers that feed it and the local-vs-end
-choice.
+ops/kernels/extend_kernel.py or, for a band narrower than the query, the
+banded kernel in ops/kernels/extend_banded.py; this module holds their
+parameters, the dispatch, the descriptor window gathers that feed them
+and the local-vs-end choice.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ..index.device import DeviceFMIndex
-from .kernels import extend_kernel
+from .kernels import extend_banded, extend_kernel
 from .refgather import (_extract_words_ascending, gather_window_fast,
                         pack_codes_2bit)
 
@@ -47,17 +48,20 @@ def _round128(n: int) -> int:
 
 
 def extend_batch_auto(query, target, qlen, tlen, h0, mat, params):
-    """Extension dispatch. CUDA tensors take the dense kernel; the routing
-    that the JAX twin sends to its banded kernel (opt_ext with a band
-    window narrower than the dense row — long reads under --vanilla) is
-    not ported yet and raises. CPU tensors run the dense plain version."""
-    if query.is_cuda and params.opt_ext:
-        qp_dense = _round128(query.shape[1] + 1)
-        wp_band = _round128(2 * int(params.w) + 3)
-        if wp_band < qp_dense:
-            raise NotImplementedError(
-                "banded extension kernel not ported yet (ROADMAP.md, "
-                "queue B: K3 extend_banded)")
+    """Extension dispatch. CUDA tensors take the banded kernel K3 by the
+    JAX twin's rule (bwamem_tpu/ops/extend.py extend_batch_auto): opt_ext
+    with a band window round128(2w+3) narrower than the dense row
+    round128(QMAX+1) — long reads under --vanilla — as long as the window
+    fits K3 (at most 1024 lanes, w <= 509); everything else takes the
+    dense kernel K1, which applies the same band as a mask. CPU tensors
+    run the dense plain version, as the JAX package's CPU path runs its
+    lax twin; both give the same result."""
+    wp_band = extend_banded.window_lanes(params.w)
+    if (query.is_cuda and params.opt_ext
+            and wp_band < _round128(query.shape[1] + 1)
+            and wp_band <= extend_banded.WP_LIMIT):
+        return extend_banded.extend_batch_banded(query, target, qlen, tlen,
+                                                 h0, mat, params)
     return extend_kernel.extend_batch(query, target, qlen, tlen, h0, mat,
                                       params)
 

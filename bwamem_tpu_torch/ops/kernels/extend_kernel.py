@@ -2,7 +2,11 @@
 PyTorch version.
 
 The kernel (csrc/extend_kernel.cu) replaces the Pallas TPU kernel
-bwamem_tpu/ops/pallas/extend_kernel.py:_make_kernel. It is compiled with
+bwamem_tpu/ops/pallas/extend_kernel.py:_make_kernel. Rows of up to 1023
+query columns run from registers; wider rows (long reads) take the
+kernel's wide route, which walks each row in 512-column chunks with the
+row kept in shared memory, or in a global scratch buffer that this
+wrapper allocates when one row does not fit there. It is compiled with
 nvcc for sm_90a into the package's `_build/` directory on first use
 (ops/kernels/build.py) and called through a plain C entry point with
 ctypes.
@@ -24,13 +28,19 @@ from .build import check as _check
 
 NEG = -0x40000000
 _PLAIN_BLOCK = 16384  # jobs per step of the plain version
+REG_QMAX = 1023       # widest row of the register route (32 lanes x 32)
+_CHUNK = 512          # the wide route's columns per chunk
+_SMEM_BYTES = 232448  # shared memory a block may use on sm_90
+QMAX_LIMIT = 1 << 20  # widest row the wrapper accepts
 
 SOURCE = _kbuild.CSRC / "extend_kernel.cu"
 _LIB_PATH = _kbuild.BUILD_DIR / "libextend_kernel.so"
 
 # kernel launches since import (or the last reset by the caller); the
-# wrapper adds one per launch and nowhere else
+# wrapper adds one per launch and nowhere else, and WIDE_LAUNCHES one more
+# when the launch takes the wide route (QMAX > REG_QMAX)
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 BUILD_LOG = ""
 
 _lock = threading.Lock()
@@ -55,7 +65,7 @@ def _load():
             build()
             lib = ctypes.CDLL(str(_LIB_PATH))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.bm_extend_dense.argtypes = [vp] * 7 + [ci] * 12 + [vp]
+            lib.bm_extend_dense.argtypes = [vp] * 8 + [ci] * 12 + [vp]
             lib.bm_extend_dense.restype = ci
             lib.bm_error_string.argtypes = [ci]
             lib.bm_error_string.restype = ctypes.c_char_p
@@ -76,7 +86,7 @@ def extend_batch(query, target, qlen, tlen, h0, mat, params):
     params: ExtendParams. Returns a dict of (N,) int32 tensors: score,
     qle, tle, gscore, gtle, max_off (qle/tle are consumed lengths,
     gscore = -1 when the query end was never reached)."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     if query.device.type == "cpu":
         return extend_batch_plain(query, target, qlen, tlen, h0, mat, params)
     if query.device.type != "cuda":
@@ -94,37 +104,57 @@ def extend_batch(query, target, qlen, tlen, h0, mat, params):
     p = params
     if p.e_del < 1 or p.e_ins < 1:
         raise ValueError("gap extension penalties must be >= 1")
-    if QMAX + 1 > 32 * 32:
-        raise ValueError(f"QMAX {QMAX} > 1023 is not supported")
+    if not 1 <= QMAX <= QMAX_LIMIT:
+        raise ValueError(f"QMAX {QMAX} outside 1..{QMAX_LIMIT}")
     out = torch.empty((N, 6), dtype=torch.int32, device=query.device)
     if N == 0:
         return _fields(out)
+    scratch = _wide_scratch(N, QMAX, query.device)
     lib = _load()
     stream = torch.cuda.current_stream(query.device).cuda_stream
     rc = lib.bm_extend_dense(
         query.data_ptr(), target.data_ptr(), qlen.data_ptr(),
         tlen.data_ptr(), h0.data_ptr(), mat.data_ptr(), out.data_ptr(),
-        N, QMAX, TMAX, int(p.o_del), int(p.e_del), int(p.o_ins),
-        int(p.e_ins), int(p.w), int(p.zdrop), int(p.end_bonus),
-        int(bool(p.opt_ext)), int(p.max_mat), stream)
+        0 if scratch is None else scratch.data_ptr(), N, QMAX, TMAX,
+        int(p.o_del), int(p.e_del), int(p.o_ins), int(p.e_ins), int(p.w),
+        int(p.zdrop), int(p.end_bonus), int(bool(p.opt_ext)),
+        int(p.max_mat), stream)
     if rc != 0:
         raise RuntimeError("extend kernel launch failed: "
                            + lib.bm_error_string(rc).decode())
     with _lock:
         LAUNCHES += 1
+        WIDE_LAUNCHES += QMAX > REG_QMAX
     return _fields(out)
 
 
-def extend_batch_plain(query, target, qlen, tlen, h0, mat, params):
+def _wide_scratch(N: int, QMAX: int, device):
+    """The global row buffer of the wide route (H and E, 8 bytes a
+    column) when one warp's row does not fit in a block's shared memory;
+    None when it does, or when the register route takes the row."""
+    if QMAX <= REG_QMAX:
+        return None
+    ncols = -(-(QMAX + 1) // _CHUNK) * _CHUNK
+    if ncols * 8 <= _SMEM_BYTES:
+        return None
+    return torch.empty(N * 2 * ncols, dtype=torch.int32, device=device)
+
+
+def extend_batch_plain(query, target, qlen, tlen, h0, mat, params,
+                       stats: dict | None = None):
     """Plain PyTorch version of the kernel: the row loop of the JAX
     twin's extend_batch, one target row for all alignments per step, the
     intra-row F dependency closed with torch.cummax. Same contract as
-    extend_batch."""
+    extend_batch. With a `stats` dict, stats["rows"] receives the (N,)
+    count of target rows each alignment ran (its DP work)."""
     N = query.shape[0]
-    if N > _PLAIN_BLOCK:  # bound the (N, QMAX) temporaries
+    if N > _PLAIN_BLOCK:  # bound the temporaries
+        subs = [{} for _ in range(0, N, _PLAIN_BLOCK)]
         parts = [extend_batch_plain(*(a[i:i + _PLAIN_BLOCK] for a in (
-            query, target, qlen, tlen, h0)), mat, params)
-            for i in range(0, N, _PLAIN_BLOCK)]
+            query, target, qlen, tlen, h0)), mat, params, sub)
+            for i, sub in zip(range(0, N, _PLAIN_BLOCK), subs)]
+        if stats is not None:
+            stats["rows"] = torch.cat([sub["rows"] for sub in subs])
         return {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
     p = params
     dev = query.device
@@ -165,11 +195,13 @@ def extend_batch_plain(query, target, qlen, tlen, h0, mat, params):
     gtle = torch.zeros_like(h0)
     max_off = torch.zeros_like(h0)
     dead = tlen <= 0
+    rows = torch.zeros_like(h0)
     for i in range(TMAX):
         if i % 8 == 0 and bool(dead.all()):
             break  # every later row is a no-op
         tchar = target[:, i].clamp(0, 4)
         active = ~dead & (i < tlen)
+        rows += active
         S = matf[tchar[:, None] * 5 + qcodes]                   # (N, QMAX)
         Hd = H[:, :-1]                                          # H(i-1, u-1)
         M = torch.cat([zcol, torch.where(Hd > 0, Hd + S, 0)], dim=1)
@@ -228,5 +260,7 @@ def extend_batch_plain(query, target, qlen, tlen, h0, mat, params):
 
         H = torch.where(active[:, None], Hn, H)
         E = torch.where(active[:, None], En, E)
+    if stats is not None:
+        stats["rows"] = rows
     out = torch.stack([best, qle, tle, gscore, gtle, max_off], dim=1)
     return _fields(out.to(torch.int32))

@@ -3,11 +3,17 @@
 Port of the native path of bwamem_tpu/pipeline/aligner.py:MemAligner:
 
   device:  batched SMEM seeding over the whole read batch (ops/seeding)
-  host:    native chaining + chain->extension-job construction (C++ core)
+  host:    native chaining, the per-seed filter (-F SHD, or the SW filter
+           for reads of 500 bp or more: one device launch per chunk,
+           pipeline/seedflt.py), chain->extension-job construction (C++)
   device:  ONE extension launch over job descriptors: the device gathers
            the query/target windows from the uploaded reads and the packed
-           genome, runs the dense extension kernel, applies end_choice
+           genome, runs the extension kernel (dense, or banded when the
+           band is narrower than the read), applies end_choice
   host:    L/R merge, native dedup/patch, then mark-primary + SAM text
+  -W / -v 4: the per-seed-object path instead — Python chaining objects,
+           the filter, host-built extension tiles bucketed by query length
+           (one launch per bucket), merge and dedup per read
   PE:      insert-size inference on the host, then mate rescue: window
            bounds on the host, ONE local-SW launch per chunk on windows
            gathered on the device (pipeline/pairing.py), results applied
@@ -20,24 +26,261 @@ threads on one aligner.
 from __future__ import annotations
 
 from contextlib import nullcontext
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..index.device import DeviceFMIndex
 from ..index.format import FMIndex
-from ..ops.extend import ExtendParams, extend_choose_desc
+from ..ops.extend import (ExtendParams, end_choice, extend_batch_auto,
+                          extend_choose_desc)
 from ..ops.seeding import SeedConfig, smem_seed_batch
 from ..utils.shapes import bucket_len, bucket_read_len
-from .options import MEM_F_NO_RESCUE, MemOptions
+from .chain import Chain
+from .options import FILTER_COEF, MEM_F_NO_RESCUE, MemOptions, cal_max_gap
+from .regions import AlnReg, mem_sort_dedup_patch
 
-_LONG_READ = 500  # the JAX twin's per-seed SW filter threshold
+_LONG_READ = 500  # reads this long turn the per-seed SW filter on
+LEFT, RIGHT = 0, 1
+
+
+@dataclass
+class ExtJob:
+    query: np.ndarray
+    target: np.ndarray
+    h0: int
+    reg: AlnReg
+    side: int
+
+
+def chain2aln_jobs(opt: MemOptions, idx: FMIndex, l_query: int,
+                   query: np.ndarray, c: Chain, regs: list[AlnReg],
+                   jobs: list[ExtJob]) -> None:
+    """Build alignment regions + extension jobs for one chain
+    (reference: src/bwamem.c:1170-1479 mem_chain2aln)."""
+    if not c.seeds:
+        return
+    l_pac = idx.l_pac
+    rmax0, rmax1 = l_pac << 1, 0
+    for t in c.seeds:
+        b = t.rbeg - (t.qbeg + cal_max_gap(opt, t.qbeg))
+        e = (t.rbeg + t.len
+             + (l_query - t.qbeg - t.len)
+             + cal_max_gap(opt, l_query - t.qbeg - t.len))
+        rmax0 = min(rmax0, b)
+        rmax1 = max(rmax1, e)
+    rmax0 = max(rmax0, 0)
+    rmax1 = min(rmax1, l_pac << 1)
+    if rmax0 < l_pac < rmax1:  # crossing the boundary; choose one side
+        if c.seeds[0].rbeg < l_pac:
+            rmax1 = l_pac
+        else:
+            rmax0 = l_pac
+    rmax0, rmax1, rseq, _rid = idx.fetch_seq_rid(rmax0, rmax1,
+                                                 mid=c.seeds[0].rbeg)
+
+    # process seeds best-score-first (ties: later index first)
+    srt = sorted(range(len(c.seeds)),
+                 key=lambda i: (c.seeds[i].score, i))
+    skipped = [False] * len(c.seeds)
+    for k in range(len(srt) - 1, -1, -1):
+        s = c.seeds[srt[k]]
+        # contained-in-existing-alignment test on ESTIMATED extents
+        hit = -1
+        for idx_p, p in enumerate(regs):
+            if (s.rbeg < p.rb_est or s.rbeg + s.len > p.re_est
+                    or s.qbeg < p.qb_est or s.qbeg + s.len > p.qe_est):
+                continue
+            if s.len - p.seedlen0 > 0.1 * l_query:
+                continue
+            qd, rd = s.qbeg - p.qb_est, s.rbeg - p.rb_est
+            w = min(cal_max_gap(opt, min(qd, rd)), p.w)
+            if qd - rd < w and rd - qd < w:
+                hit = idx_p
+                break
+            qd = p.qe_est - (s.qbeg + s.len)
+            rd = p.re_est - (s.rbeg + s.len)
+            w = min(cal_max_gap(opt, min(qd, rd)), p.w)
+            if qd - rd < w and rd - qd < w:
+                hit = idx_p
+                break
+        if hit >= 0:
+            # contained: only extend if an overlapping seed disagrees
+            disagree = False
+            for i2 in range(k + 1, len(srt)):
+                if skipped[srt[i2]]:
+                    continue
+                t = c.seeds[srt[i2]]
+                if t.len < s.len * 0.95:
+                    continue
+                if (s.qbeg <= t.qbeg
+                        and s.qbeg + s.len - t.qbeg >= s.len >> 2
+                        and t.qbeg - s.qbeg != t.rbeg - s.rbeg):
+                    disagree = True
+                    break
+                if (t.qbeg <= s.qbeg
+                        and t.qbeg + t.len - s.qbeg >= s.len >> 2
+                        and s.qbeg - t.qbeg != s.rbeg - t.rbeg):
+                    disagree = True
+                    break
+            if not disagree:
+                skipped[srt[k]] = True
+                continue
+
+        a = AlnReg(w=opt.w, score=-1, truesc=-1, rid=c.rid,
+                   frac_rep=c.frac_rep, is_alt=c.is_alt)
+        # estimated extents (fork FILTER_COEF logic, src/bwamem.c:1284-1298)
+        fwd = int(FILTER_COEF * (l_query - (s.qbeg + s.len)))
+        a.qe_est = min(s.qbeg + s.len + fwd, l_query)
+        a.re_est = min(s.rbeg + s.len + fwd, l_pac << 1)
+        back = int(FILTER_COEF * (s.qbeg + 1))
+        a.qb_est = max(s.qbeg - back, 0)
+        a.rb_est = max(s.rbeg - back, 0)
+        if a.rb_est < l_pac < a.re_est:
+            if s.rbeg < l_pac:
+                a.re_est = l_pac
+            else:
+                a.rb_est = l_pac
+        a.seedlen0 = s.len
+        a.query_seed_begin = s.qbeg
+        a.target_seed_begin = s.rbeg
+        a._chain_seeds = c.seeds  # for post-merge seedcov
+
+        lql = s.qbeg
+        lrl = s.rbeg - rmax0
+        rql = l_query - (lql + s.len)
+        rrl = (rmax1 - rmax0) - (lrl + s.len)
+        h0 = s.len * opt.a
+        if lql > 0:
+            jobs.append(ExtJob(
+                query=query[:lql][::-1].copy(),
+                target=rseq[:lrl][::-1].copy(),
+                h0=h0, reg=a, side=LEFT))
+        if rql > 0:
+            jobs.append(ExtJob(
+                query=query[lql + s.len:].copy(),
+                target=rseq[lrl + s.len:].copy(),
+                h0=h0, reg=a, side=RIGHT))
+        a.align_sides = (lql > 0) + (rql > 0)
+        if a.align_sides == 0:  # seed spans the whole read
+            # reference: s->score < 0 ? s->len * opt->a : s->score
+            a.score = a.truesc = (s.score if s.sw_scored
+                                  else s.len * opt.a)
+            a.qb, a.qe = 0, l_query
+            a.rb, a.re = s.rbeg, s.rbeg + s.len
+            a.seedcov = sum(
+                t.len for t in c.seeds
+                if (t.qbeg >= a.qb and t.qbeg + t.len <= a.qe
+                    and t.rbeg >= a.rb and t.rbeg + t.len <= a.re))
+        regs.append(a)
+
+
+def run_extension_jobs(fm_params: ExtendParams, mat, jobs: list[ExtJob],
+                       pen_clip: int, bucket_bounds=(64, 192, 1 << 30),
+                       device="cuda") -> None:
+    """Execute all jobs on `device`, bucketed by query length (the
+    generalization of the reference's SHORT/LONG split,
+    src/bntseq.h:85-99), then scatter chosen (score, qle, tle) into
+    reg.part[side]. The tiles are materialized on the host; a bucket's
+    widths are the buckets of its longest query and target, so long
+    targets reach the dense kernel's wide route. Job counts are not
+    padded: the launch takes any count."""
+    if not jobs:
+        return
+    buckets: dict[int, list[ExtJob]] = {}
+    for j in jobs:
+        for b in bucket_bounds:
+            if len(j.query) <= b:
+                buckets.setdefault(b, []).append(j)
+                break
+    mat_t = torch.as_tensor(np.asarray(mat, np.int32), device=device)
+    for sub in buckets.values():
+        QMAX = bucket_len(max(len(j.query) for j in sub))
+        TMAX = bucket_len(max(len(j.target) for j in sub))
+        N = len(sub)
+        Q = np.full((N, QMAX), 4, np.int8)
+        T = np.full((N, TMAX), 4, np.int8)
+        ql = np.zeros(N, np.int32)
+        tl = np.zeros(N, np.int32)
+        h0 = np.ones(N, np.int32)
+        for i, j in enumerate(sub):
+            Q[i, : len(j.query)] = j.query
+            T[i, : len(j.target)] = j.target
+            ql[i], tl[i], h0[i] = len(j.query), len(j.target), j.h0
+        Qt, Tt, qlt, tlt, h0t = (torch.from_numpy(a).to(device)
+                                 for a in (Q, T, ql, tl, h0))
+        out = extend_batch_auto(Qt, Tt, qlt, tlt, h0t, mat_t, fm_params)
+        sc, qe, te = torch.stack(end_choice(
+            out["score"], out["qle"], out["tle"], out["gscore"],
+            out["gtle"], qlt, pen_clip)).cpu().numpy()
+        for i, j in enumerate(sub):
+            j.reg.part[j.side] = [int(sc[i]), int(qe[i]), int(te[i])]
+
+
+def merge_extension_results(l_query: int, regs: list[AlnReg],
+                            a_match: int = 1) -> None:
+    """L/R merge (reference: src/bwamem.c:2296-2311) + post-merge seedcov
+    (vanilla-style; the fork leaves seedcov 0 for extended regions, which
+    only matters for the non-default mapQ_coef_len=0 formula).
+
+    When both sides extended, each side's score counts the whole seed
+    (h0 = seedlen0 * a), so one seed score must come back out. The
+    reference subtracts bare `seedlen0` (src/bwamem.c:2298) — correct
+    only at the default a=1; at -A 2 that inflates every two-sided score
+    by seedlen0*(a-1) above the theoretical max. We subtract
+    seedlen0 * a, which matches vanilla bwa-mem's chained-extension
+    scores for every a (verified by the -A flag cell of the concordance
+    matrix, tests/test_bwa_concordance_flags.py)."""
+    for a in regs:
+        if a.align_sides > 0:
+            a.score = a.part[LEFT][0] + a.part[RIGHT][0]
+            if a.align_sides == 2:
+                a.score -= a.seedlen0 * a_match
+            a.qb = a.query_seed_begin - a.part[LEFT][1]
+            a.qe = a.query_seed_begin + a.seedlen0 + a.part[RIGHT][1]
+            a.rb = a.target_seed_begin - a.part[LEFT][2]
+            a.re = a.target_seed_begin + a.seedlen0 + a.part[RIGHT][2]
+            a.truesc = a.score
+            seeds = a._chain_seeds
+            a.seedcov = sum(
+                t.len for t in seeds
+                if (t.qbeg >= a.qb and t.qbeg + t.len <= a.qe
+                    and t.rbeg >= a.rb and t.rbeg + t.len <= a.re))
+
+
+def _dump_chains(idx, seeds, per_read_chains) -> None:
+    """Debug dump of seeds + chains (equivalent of the reference's
+    bwa_verbose>=4 traces / mem_print_chain, src/bwamem.c:386-402 and
+    mem_print_gpu, src/bwamem.c:304)."""
+    import sys
+
+    for b, chains in enumerate(per_read_chains):
+        print(f"=====> read {b}: {len(seeds[b])} seeds, "
+              f"{len(chains)} chains <=====", file=sys.stderr)
+        for q0, q1, rb, occ in seeds[b]:
+            print(f"  seed q[{q0},{q1}) r={rb} occ={occ}", file=sys.stderr)
+        for ci, c in enumerate(chains):
+            parts = "; ".join(f"{s.qbeg},{s.rbeg},{s.len}" for s in c.seeds)
+            print(f"  chain({ci}) w={c.w} rid={c.rid}: {parts}",
+                  file=sys.stderr)
+
+
+def _dump_regs(per_read_regs, stage: str) -> None:
+    import sys
+
+    for b, regs in enumerate(per_read_regs):
+        for a in regs:
+            print(f"  [{stage}] read {b}: q[{a.qb},{a.qe}) r[{a.rb},{a.re})"
+                  f" score={a.score} w={a.w} seedcov={a.seedcov}",
+                  file=sys.stderr)
 
 
 class MemAligner:
     """Index in device memory, batched device stages, host post-processing.
-    Single- and paired-end, default seeding (SMEM + re-seed rounds), native
-    host core."""
+    Single- and paired-end reads of any length, default seeding (SMEM +
+    re-seed rounds), the per-seed filters, the native host core or the
+    per-seed-object path."""
 
     def __init__(self, opt: MemOptions, idx: FMIndex,
                  fm: DeviceFMIndex | None = None,
@@ -66,7 +309,7 @@ class MemAligner:
         return (self.timings.span(label) if self.timings is not None
                 else nullcontext())
 
-    def _check_supported(self, seqs) -> None:
+    def _check_supported(self) -> None:
         opt = self.opt
         todo = []
         if opt.seed_type != 1:
@@ -74,14 +317,6 @@ class MemAligner:
                         "variants)")
         if opt.re_seed:
             todo.append("-g (ROADMAP queue A: seeding variants)")
-        if opt.shd_filter:
-            todo.append("-F (ROADMAP queue A: seed filters/shd/banded)")
-        if max((len(s) for s in seqs), default=0) >= _LONG_READ:
-            todo.append(f"reads of {_LONG_READ} bp or more (ROADMAP queue "
-                        "A: seed filters/shd/banded)")
-        if opt.min_chain_weight > 0 or opt.verbose >= 4:
-            todo.append("-W / -v >= 4 (the per-seed-object chaining path; "
-                        "ROADMAP queue A: seed filters/shd/banded)")
         if todo:
             raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -123,6 +358,13 @@ class MemAligner:
         lqs = [len(s) for s in seqs]
         with self._span("chain_native"):
             raw = chain_batch_raw(opt, idx, lqs, None, seed_arrays=seeds)
+        if opt.shd_filter or max(lqs, default=0) >= _LONG_READ:
+            # -F SHD / long-read SW per-seed filter: one batched device
+            # launch over the flat arrays (no per-seed objects)
+            from .seedflt import filter_seed_arrays
+
+            with self._span("seed_filter"):
+                filter_seed_arrays(opt, idx, raw, seqs, device=self.device)
         B = len(seqs)
         L = max(lqs)
         reads = np.full((B, L), 4, np.uint8)
@@ -290,12 +532,71 @@ class MemAligner:
 
     def collect_regs_batch(self, seqs: list[np.ndarray]):
         """Device seeding + native chaining + ONE device extension + L/R
-        merge + dedup/patch, before primary marking."""
-        self._check_supported(seqs)
+        merge + dedup/patch, before primary marking: a RegArrays. With -W
+        or -v >= 4, the per-seed-object path: a list of AlnReg lists."""
+        self._check_supported()
         with self._span("seed_total"):
             seed_arr = self.seed_batch_arrays(seqs)
+        if self.opt.min_chain_weight > 0 or self.opt.verbose >= 4:
+            return self._collect_objects(seqs, seed_arr)
         with self._span("native_total"):
             return self._collect_native(seqs, seed_arr)
+
+    def _collect_objects(self, seqs, seed_arr):
+        """The per-seed-object path (the JAX twin's fallback body of
+        collect_regs_batch): chains as Python objects, the per-seed filter,
+        extension jobs built per chain, one launch per query-length bucket,
+        merge and dedup per read."""
+        from .chain import chain_batch
+        from .seedflt import SeedFilterBatch
+
+        opt, idx = self.opt, self.idx
+        cols = np.stack([seed_arr["qbeg"], seed_arr["qend"],
+                         seed_arr["rbeg"], seed_arr["n_occ"]], axis=1)
+        bnd = seed_arr["bounds"]
+        seeds = [
+            [tuple(int(x) for x in row) for row in cols[bnd[i]:bnd[i + 1]]]
+            for i in range(len(seqs))
+        ]
+
+        # phase 1: chains + chain filter for every read, then the per-seed
+        # filter jobs of the whole batch in one launch
+        per_read_chains = chain_batch(opt, idx, [len(s) for s in seqs],
+                                      seeds)
+        flt = SeedFilterBatch(opt, idx, device=self.device)
+        for b, seq in enumerate(seqs):
+            flt.add_read(len(seq), seq, per_read_chains[b])
+        with self._span("seed_filter"):
+            flt.run()
+
+        if opt.verbose >= 4:
+            _dump_chains(idx, seeds, per_read_chains)
+
+        # phase 2: extension-job construction, then one launch per bucket
+        per_read_regs: list[list[AlnReg]] = []
+        jobs: list[ExtJob] = []
+        for b, seq in enumerate(seqs):
+            regs: list[AlnReg] = []
+            for c in per_read_chains[b]:
+                chain2aln_jobs(opt, idx, len(seq), seq, c, regs, jobs)
+            per_read_regs.append(regs)
+        if opt.verbose >= 4:
+            _dump_regs(per_read_regs, stage="pre-extension")
+
+        self.stats["n_reads"] += len(seqs)
+        self.stats["n_extensions"] += len(jobs)
+        with self._span("ext_device"):
+            run_extension_jobs(self.ext_params, opt.mat, jobs, opt.pen_clip5,
+                               device=self.device)
+
+        out: list[list[AlnReg]] = []
+        for b, seq in enumerate(seqs):
+            regs = per_read_regs[b]
+            merge_extension_results(len(seq), regs, a_match=opt.a)
+            out.append(mem_sort_dedup_patch(opt, idx, seq, regs))
+        if opt.verbose >= 4:
+            _dump_regs(out, stage="post-dedup")
+        return out
 
     def collect_pairs_batch(self, seqs: list[np.ndarray],
                             pes: list | None = None):
@@ -309,9 +610,11 @@ class MemAligner:
             raise SystemExit(
                 "[bwamem-tpu-torch] error: paired-end input has an odd "
                 "number of reads — not valid interleaved PE data")
-        # materialize ONCE: pestat iteration + pair grouping below would
-        # otherwise each rebuild the objects per read
-        per_read_regs = self.collect_regs_batch(seqs).to_lists()
+        per_read_regs = self.collect_regs_batch(seqs)
+        if hasattr(per_read_regs, "to_lists"):
+            # materialize ONCE: pestat iteration + pair grouping below
+            # would otherwise each rebuild the objects per read
+            per_read_regs = per_read_regs.to_lists()
         if pes is None:
             with self._span("pestat"):
                 pes = self.pes_fixed or mem_pestat(opt, idx.l_pac,

@@ -4,14 +4,19 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build both kernels from csrc/ with nvcc, in parallel: K1 (extension)
-     and K2 (local SW);
+  1. build the three kernels from csrc/ with nvcc, in parallel: K1 (dense
+     extension), K2 (local SW) and K3 (banded extension);
   2. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, exact equality, median of 5 timed runs:
+     paths' shapes, exact equality, median of 5 timed runs, with the bound
+     (the larger of bytes over HBM bandwidth and int32 operations over the
+     int32 rate, for the rows these inputs run):
      K1 at QMAX 192, TMAX 384, 32768 jobs + edge lanes, all four
-     (opt_ext, zdrop) variants; K2 at QMAX 192, TMAX 768, 4096 jobs + edge
-     lanes, rev_skip 0/19 x minsc 0/19 (the plain version timed on the
-     main-path variant, rev_skip 19 and minsc 19, only);
+     (opt_ext, zdrop) variants, and on its wide route at QMAX 1024,
+     TMAX 2048, 4096 jobs, all four variants; K2 at QMAX 192, TMAX 768,
+     4096 jobs + edge lanes, rev_skip 0/19 x minsc 0/19 (the plain version
+     timed on the main-path variant, rev_skip 19 and minsc 19, only); K3
+     at QMAX 256, TMAX 384, w=100, 32768 jobs + edge lanes, zdrop 0 and
+     100, and at QMAX 1024, TMAX 1536, w=300, 4096 jobs;
   3. build the world: a 4.6 Mbp repeat-rich simulated genome (fixed seed),
      indexed with `python -m bwamem_tpu_torch index -r 4`; 32768 SE reads
      and 16384 FR pairs (insert max(260, N(350, 50)), 1% of the pairs with
@@ -23,8 +28,21 @@ Phases (each prints its own lines; any failure exits nonzero):
   5. align the pairs from two files (two chunks of 8192 pairs) through the
      CLI entry point with --device cuda, counting K1 and K2 launches; then
      the first 1024 pairs on the GPU and with --device cpu, whose SAM must
-     be byte-identical (apart from @PG).
-Then one JSON line per the kernels, and the device JSON as the last line.
+     be byte-identical (apart from @PG);
+  6. 4096 SE reads of 1 kb (utils/simgenome.simulate_reads: 1%
+     substitutions, 0.2% insertions, 0.2% deletions) at the default
+     flags in one chunk: the per-seed SW filter
+     on K2, the extension on K1's wide route;
+  7. 16384 SE reads of 250 bp (1% substitutions) under --vanilla: the
+     extension on K3;
+  8. -F on the first 16384 reads of phase 4, then -x pacbio on 1024 reads
+     of 1 kb with 4% substitutions, 3% insertions and 3% deletions (the
+     per-seed-object path: K2 for the SW filter, K1 for the extension).
+     Phases 6-8 count every kernel's launches around the device run, print
+     reads/s and the spans, and hold the device SAM of the first 128,
+     1024, 1024 and 64 reads byte-identical to --device cpu.
+Then one JSON line for the kernels, the card line, and the device JSON as
+the last line.
 Needs one CUDA device; exits nonzero without one.
 """
 from __future__ import annotations
@@ -45,6 +63,15 @@ READ_LEN = 150
 N_COMPARE = 1024
 KERNEL_SHAPES = dict(N=32_768, QMAX=192, TMAX=384)
 VARIANTS = [(False, 0), (False, 100), (True, 0), (True, 100)]
+WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=2048)  # K1's wide route: 1 kb
+K3_SHAPES = dict(N=32_768, QMAX=256, TMAX=384)  # --vanilla, 250 bp reads
+K3_VARIANTS = [(100, 0), (100, 100)]  # (w, zdrop); --vanilla keeps -d 0
+K3_WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=1536)
+# the card's rates for the bound: HBM3 bandwidth, and int32 issue of 132
+# SMs x 64 INT32 lanes x 1.98 GHz (H100 SXM)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_CELL = 12  # int32 operations of one DP cell (M, E, F, H, row max)
 N_PAIRS = 16_384
 CHUNK_PAIRS = 8192
 VICTIM_EVERY = 100  # 1% of the pairs: read 2 unseedable, only rescue
@@ -103,44 +130,83 @@ def _median_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True):
-    """Kernel vs plain version on `device` for all four variants. Returns
-    the product variant's record (times in ms; None when not timed)."""
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM bandwidth
+    and the int32 operations over the card's int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ext_bound(args, rows, opt_ext: bool, w: int) -> dict:
+    """K1/K3 bound on these inputs: every row an alignment ran costs
+    OPS_PER_CELL operations per live column (qlen + 1 columns, or the
+    band's 2w + 2 when it is narrower)."""
+    q, t, ql = args[0], args[1], args[2]
+    cols = ql.long().clamp(max=q.shape[1]) + 1
+    if opt_ext:
+        cols = cols.clamp(max=2 * w + 2)
+    cells = int((rows.long() * cols).sum())
+    nbytes = q.numel() + t.numel() + 3 * 4 * len(ql) + 100 + 6 * 4 * len(ql)
+    return _bound(nbytes, OPS_PER_CELL * cells)
+
+
+def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
+                 kernel: str = "K1", variants=None, product=None):
+    """Extension kernel vs its plain version on `device`, exact, for each
+    (opt_ext, zdrop) variant (K3: each (w, zdrop)). Returns the product
+    variant's record (times in ms, None when not timed; its bound)."""
     import numpy as np
     import torch
 
     from bwamem_tpu_torch.ops.extend import ExtendParams, make_score_matrix
-    from bwamem_tpu_torch.ops.kernels import extend_kernel
+    from bwamem_tpu_torch.ops.kernels import extend_banded, extend_kernel
 
     shapes = shapes or KERNEL_SHAPES
+    if kernel == "K3":
+        run_k, run_p = (extend_banded.extend_batch_banded,
+                        extend_banded.extend_batch_banded_plain)
+        variants = variants or [(100, 0)]
+        params = [ExtendParams(w=w, zdrop=z, opt_ext=True)
+                  for w, z in variants]
+        name = "K3 extend_banded"
+    else:
+        run_k, run_p = (extend_kernel.extend_batch,
+                        extend_kernel.extend_batch_plain)
+        variants = variants or VARIANTS
+        params = [ExtendParams(w=100 if o else 300, zdrop=z, opt_ext=o)
+                  for o, z in variants]
+        name = "K1 extend_dense"
+    product = product or variants[0]
     rng = np.random.default_rng(2024)
     arrays = make_jobs(rng, shapes["N"], shapes["QMAX"], shapes["TMAX"])
     args = [torch.from_numpy(a).to(device)
             for a in (*arrays, make_score_matrix(1, 4))]
-    product = None
-    for opt_ext, zdrop in VARIANTS:
-        p = ExtendParams(w=100 if opt_ext else 300, zdrop=zdrop,
-                         opt_ext=opt_ext)
-        want = extend_kernel.extend_batch_plain(*args, p)
-        got = extend_kernel.extend_batch(*args, p)
+    rec = None
+    for var, p in zip(variants, params):
+        stats = {}
+        want = run_p(*args, p, stats)
+        got = run_k(*args, p)
         if device == "cuda":
             torch.cuda.synchronize()
         err = max(int((got[k].long() - want[k].long()).abs().max())
                   for k in want)
         if err != 0:
-            raise SystemExit(f"kernel != plain for opt_ext={opt_ext} "
-                             f"zdrop={zdrop}: max abs err {err}")
+            raise SystemExit(f"{name} != plain for {var}: max abs err {err}")
         ms = plain_ms = None
         if timed:
-            ms = _median_ms(lambda: extend_kernel.extend_batch(*args, p))
-            plain_ms = _median_ms(
-                lambda: extend_kernel.extend_batch_plain(*args, p))
-        print(f"K1 extend_dense opt_ext={int(opt_ext)} zdrop={zdrop}: exact "
-              f"on {shapes['N']} jobs; kernel {ms} ms, plain {plain_ms} ms",
-              flush=True)
-        if (opt_ext, zdrop) == (False, 0):  # the product defaults
-            product = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    return product
+            ms = _median_ms(lambda: run_k(*args, p))
+            plain_ms = _median_ms(lambda: run_p(*args, p))
+        bound = _ext_bound(args, stats["rows"], p.opt_ext, p.w)
+        print(f"{name} {var} QMAX {shapes['QMAX']} TMAX {shapes['TMAX']}: "
+              f"exact on {shapes['N']} jobs; kernel {ms} ms, plain "
+              f"{plain_ms} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
+        if var == product:
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+    return rec
 
 
 def make_sw_jobs(rng, N, QMAX, TMAX):
@@ -209,11 +275,24 @@ def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True):
             if (rev_skip, minsc) == SW_MAIN:
                 plain_ms = _median_ms(run_plain)
         hits = int((want[0] >= 19).sum())
+        # forward sweep over every row and query column, reverse sweep
+        # over q[qe..0] x t[te..0] where it runs
+        fwd = (torch.from_numpy(tl).clamp(max=t.shape[1]).long()
+               * torch.from_numpy(ql).clamp(0, q.shape[1]).long()).sum()
+        best, _, qe, _, te, _ = want.long().cpu()
+        rev = torch.where(best >= max(rev_skip, 1),
+                          (te + 1).clamp(min=0) * (qe + 1).clamp(min=0), 0)
+        bound = _bound(q.size + t.size + 3 * 4 * len(ql) + 100
+                       + 6 * 4 * len(ql),
+                       OPS_PER_CELL * int(fwd + rev.sum()))
         print(f"K2 swalign_local rev_skip={rev_skip} minsc={minsc}: exact "
               f"on {shapes['N']} jobs ({hits} with score >= 19); kernel "
-              f"{ms} ms, plain {plain_ms} ms", flush=True)
+              f"{ms} ms, plain {plain_ms} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})",
+              flush=True)
         if (rev_skip, minsc) == SW_MAIN:
-            main_rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            main_rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            **bound)
     return main_rec
 
 
@@ -221,7 +300,8 @@ def make_world(d: str, genome_len: int = GENOME_LEN, n_reads: int = N_READS,
                seed: int = 12345, n_pairs: int = N_PAIRS):
     """Repeat-rich genome -> ref.fa; SE reads -> reads.fq (names carry the
     simulated origin) and head.fq (the first N_COMPARE reads); pairs ->
-    r1.fq/r2.fq and head1.fq/head2.fq (make_pairs)."""
+    r1.fq/r2.fq and head1.fq/head2.fq (make_pairs). Returns the genome's
+    contigs."""
     import numpy as np
 
     from bwamem_tpu_torch.io.fastx import _CODE_LUT
@@ -248,6 +328,7 @@ def make_world(d: str, genome_len: int = GENOME_LEN, n_reads: int = N_READS,
     with open(os.path.join(d, "head.fq"), "w") as f:
         f.writelines(recs[:N_COMPARE])
     make_pairs(d, g, n_pairs, seed + 2)
+    return contigs
 
 
 def make_pairs(d: str, g, n_pairs: int, seed: int,
@@ -436,14 +517,129 @@ def pe_align_phase(d: str, device: str = "cuda",
     return k1, k2, n_pairs / wall
 
 
+def _head(src: str, dst: str, n: int) -> None:
+    """The first n FASTQ records of src into dst."""
+    with open(src) as f:
+        lines = [ln for _, ln in zip(range(4 * n), f)]
+    with open(dst, "w") as f:
+        f.writelines(lines)
+
+
+def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
+               need: tuple, device: str = "cuda") -> dict:
+    """A further main path: SE `align` of `reads` with `flags` through the
+    CLI entry point on `device`, every kernel's launch count reset just
+    before and read just after; kernels in `need` must have launched. Then
+    the first n_head reads with --device cpu, whose SAM must be
+    byte-identical to the device run's records of those reads. Returns
+    the launch counts (K1, K1 wide route, K2, K3) and reads/s."""
+    from bwamem_tpu_torch.cli import main
+    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
+                                              swalign_kernel)
+
+    idx = os.path.join(d, "idx")
+    mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded}
+
+    def align(dev, path, label):
+        out = os.path.join(d, f"{tag}_{label}.sam")
+        tsv = os.path.join(d, f"{tag}_{label}.tsv")
+        if os.path.exists(tsv):  # the CLI appends
+            os.remove(tsv)
+        if main(["align", "--device", dev, "-t", "1", "-f", tsv, *flags,
+                 idx, path, "-o", out]) != 0:
+            raise SystemExit(f"{tag}: align on {dev} failed")
+        return _records(out), _timing_row(tsv)
+
+    for m in mods.values():
+        m.LAUNCHES = 0
+    extend_kernel.WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    recs, row = align(device, os.path.join(d, reads), "main")
+    wall = time.perf_counter() - t0
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    counts["K1_wide"] = extend_kernel.WIDE_LAUNCHES
+    body = [ln.split("\t") for ln in recs if not ln.startswith("@")]
+    prim = [f for f in body if not int(f[1]) & 0x900]
+    n = len(prim)
+    mapped = sum(not int(f[1]) & 4 for f in prim)
+    spans = ", ".join(f"{k} {row[k]} s" for k in (
+        "collect", "seed_device", "seed_filter", "chain_native",
+        "ext_device", "finalize") if row.get(k))
+    print(f"{tag} ({' '.join(flags) or 'default flags'}) --device {device}: "
+          f"{n} reads in {wall:.2f} s wall (index load + setup included) = "
+          f"{n / wall:.1f} reads/s; mapped {mapped / n:.4f}; spans {spans}; "
+          f"launches K1 {counts['K1']} (wide route {counts['K1_wide']}), "
+          f"K2 {counts['K2']}, K3 {counts['K3']}", flush=True)
+    if device == "cuda":
+        missing = [k for k in need if counts[k] < 1]
+        if missing:
+            raise SystemExit(f"{tag}: the path launched no {missing}")
+    if mapped < 0.9 * n:
+        raise SystemExit(f"{tag}: only {mapped}/{n} reads mapped")
+
+    head = os.path.join(d, f"{tag}_head.fq")
+    _head(os.path.join(d, reads), head, n_head)
+    t0 = time.perf_counter()
+    want, _ = align("cpu", head, "cpu")
+    names = {ln.split("\t")[0] for ln in want if not ln.startswith("@")}
+    got = [ln for ln in recs
+           if ln.startswith("@") or ln.split("\t")[0] in names]
+    if got != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise SystemExit(f"{tag}: {device} and CPU SAM differ at line "
+                         f"{bad}:\n{got[bad:bad + 1]}\n{want[bad:bad + 1]}")
+    print(f"{tag}: first {len(names)} reads: {device} SAM == CPU SAM "
+          f"({len(want)} lines, CPU run {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return dict(counts, reads_per_s=n / wall)
+
+
+def long_read_phases(d: str, contigs, device: str = "cuda",
+                     sizes=(4096, 16384, 16384, 1024),
+                     heads=(128, 1024, 1024, 64)) -> dict:
+    """Phases 6-8 on the world of phase 3 (its contigs): 1 kb reads at
+    the default flags, 250 bp reads under --vanilla, -F on the first 150
+    bp reads of reads.fq, and -x pacbio on noisy 1 kb reads. Returns each
+    phase's launch counts and reads/s."""
+    import numpy as np
+
+    from bwamem_tpu_torch.utils.simgenome import simulate_reads, write_fastq
+
+    n_long, n_250, n_shd, n_pb = sizes
+    rng = np.random.default_rng(7)
+    for name, n, length, sub, ins, dele in (
+            ("long", n_long, 1000, 0.01, 0.002, 0.002),
+            ("r250", n_250, 250, 0.01, 0.0, 0.0),
+            ("pb", n_pb, 1000, 0.04, 0.03, 0.03)):
+        write_fastq(os.path.join(d, f"{name}.fq"), simulate_reads(
+            rng, contigs, n, read_len=length, sub=sub, ins=ins, dele=dele,
+            prefix=name))
+    _head(os.path.join(d, "reads.fq"), os.path.join(d, "shd.fq"), n_shd)
+    out = {}
+    phase("6 long reads (1 kb, default flags)")
+    out["long"] = flag_phase(d, "long", "long.fq", heads[0], [],
+                             ("K1", "K1_wide", "K2"), device)
+    phase("7 --vanilla (250 bp)")
+    out["vanilla"] = flag_phase(d, "vanilla", "r250.fq", heads[1],
+                                ["--vanilla"], ("K3",), device)
+    phase("8 filters: -F (150 bp), -x pacbio (1 kb)")
+    out["shd"] = flag_phase(d, "shd", "shd.fq", heads[2], ["-F"], ("K1",),
+                            device)
+    out["pacbio"] = flag_phase(d, "pacbio", "pb.fq", heads[3],
+                               ["-x", "pacbio"], ("K1", "K2"), device)
+    return out
+
+
 def build_kernels():
-    """Build K1 and K2 at once (one nvcc each) and print each build's
+    """Build K1, K2 and K3 at once (one nvcc each) and print each build's
     register and spill report."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from bwamem_tpu_torch.ops.kernels import extend_kernel, swalign_kernel
+    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
+                                              swalign_kernel)
 
-    mods = {"K1": extend_kernel, "K2": swalign_kernel}
+    mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded}
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = {k: ex.submit(m.build) for k, m in mods.items()}
         secs = {k: f.result() for k, f in futs.items()}
@@ -475,11 +671,14 @@ def main() -> int:
     phase("2 kernel vs plain")
     k1 = kernel_phase("cuda")
     k2 = sw_kernel_phase("cuda")
+    k1_wide = kernel_phase("cuda", WIDE_SHAPES)
+    k3 = kernel_phase("cuda", K3_SHAPES, kernel="K3", variants=K3_VARIANTS)
+    kernel_phase("cuda", K3_WIDE_SHAPES, kernel="K3", variants=[(300, 0)])
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         phase("3 world")
         t0 = time.perf_counter()
-        make_world(d)
+        contigs = make_world(d)
         print(f"genome + reads simulated in {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
@@ -495,15 +694,25 @@ def main() -> int:
         phase("5 paired-end align")
         _, sw_launches, _ = pe_align_phase(d)
 
+        runs = long_read_phases(d, contigs)
+
     print(json.dumps({"kernels": [
-        dict(name="extend_dense", route="cuda",
+        dict(name="extend_dense", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",
              launches=launches, **k1),
-        dict(name="swalign_local", route="cuda",
+        dict(name="swalign_local", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
-             launches=sw_launches, **k2)]}), flush=True)
+             launches=sw_launches, **k2),
+        dict(name="extend_dense_wide", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/extend_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",
+             launches=runs["long"]["K1_wide"], **k1_wide),
+        dict(name="extend_banded", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/extend_banded.cu",
+             replaces="bwamem_tpu/ops/pallas/extend_banded.py:241",
+             launches=runs["vanilla"]["K3"], **k3)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,16 +100,12 @@ def test_unported_inputs_raise(fixture2):
     d, env = fixture2
     idx = FMIndex.load(str(d / "idx.bmt"))
     seq = np.zeros(150, np.uint8)
-    for field, value in (("seed_type", 2), ("re_seed", True),
-                         ("shd_filter", True)):
+    for field, value in (("seed_type", 2), ("re_seed", True)):
         opt = MemOptions()
         setattr(opt, field, value)
         with pytest.raises(NotImplementedError):
             MemAligner(opt, idx, device="cpu").align_batch(["r"], [seq])
-    al = MemAligner(MemOptions(), idx, device="cpu")
-    with pytest.raises(NotImplementedError):
-        al.align_batch(["r"], [np.zeros(600, np.uint8)])
-    for flags in (["--n-chips", "2"], ["-F"]):
+    for flags in (["--n-chips", "2"], ["-u", "2"], ["-g"]):
         res = subprocess.run(
             [sys.executable, "-m", "bwamem_tpu_torch", "align", "--device",
              "cpu", *flags, str(d / "idx"), str(d / "r.fq"), str(d / "r.fq")],

@@ -1,10 +1,15 @@
-"""The kernels on the card. K1 (extension): exact against its plain
+"""The kernels on the card. K1 (dense extension): exact against its plain
 PyTorch version for all four (opt_ext, zdrop > 0) variants at the main
-path's widths, one launch counted per call, the wrapper's input checks,
-and the banded routing's refusal. K2 (local SW): exact against its plain
-version at the rescue path's widths and two others, with and without
-rev_skip, one launch per call, the wrapper's input checks. Every test
-needs an NVIDIA GPU (marker `cuda`) and skips without one.
+path's widths, on its wide route at QMAX 1024, 1536 and 4096 and with a
+global row buffer past 28671 columns, one launch counted per call, the
+wrapper's input checks. K3 (banded extension): exact against its plain
+version for (w, zdrop) in (100, 0), (100, 40), (300, 0), (64, 100) with
+degenerate lanes, one launch per call, and extend_batch_auto sends the
+banded shapes to it and the rest to K1. K2 (local SW): exact against its
+plain version at the rescue path's widths and three others (TMAX 3072:
+exactly 48 KB of row maxima per block), with and without rev_skip, one
+launch per call, the wrapper's input checks. Every
+test needs an NVIDIA GPU (marker `cuda`) and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without them:
@@ -21,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from bwamem_tpu_torch.ops import extend  # noqa: E402
+from bwamem_tpu_torch.ops.kernels import extend_banded  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import extend_kernel  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import swalign_kernel  # noqa: E402
 from chip_smoke import make_jobs, make_sw_jobs  # noqa: E402
@@ -68,11 +74,88 @@ def test_wrapper_checks_inputs():
     assert out["score"].shape == (0,) and extend_kernel.LAUNCHES == before
 
 
-def test_banded_routing_is_not_ported():
-    args = [a.cuda() for a in _args(64, qmax=384, tmax=512)]
-    p = extend.ExtendParams(w=20, opt_ext=True)  # band 128 < dense row 512
-    with pytest.raises(NotImplementedError):
-        extend.extend_batch_auto(*args, p)
+@pytest.mark.parametrize("opt_ext,zdrop", [(False, 0), (True, 40)])
+@pytest.mark.parametrize("qmax", [1024, 1536, 4096])
+def test_kernel_wide_route_matches_plain(opt_ext, zdrop, qmax):
+    # the plain version runs on the host: fewer jobs at the widest row
+    args = _args(64 if qmax > 2048 else 300, qmax, qmax + 200)
+    p = extend.ExtendParams(w=100, zdrop=zdrop, opt_ext=opt_ext)
+    want = extend_kernel.extend_batch_plain(*args, p)
+    before = extend_kernel.LAUNCHES
+    got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    assert extend_kernel.LAUNCHES == before + 1
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_kernel_wide_route_global_rows():
+    """29000 columns: one warp's row does not fit in shared memory, so
+    the wrapper hands the kernel a global row buffer."""
+    qmax = 29_000
+    args = _args(24, qmax, qmax + 64)
+    args[3].clamp_(max=300)  # short targets keep the plain version quick
+    assert extend_kernel._wide_scratch(24, qmax, "cpu") is not None
+    p = extend.ExtendParams()
+    want = extend_kernel.extend_batch_plain(*args, p)
+    got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _banded_args(n, qmax, tmax, seed=7):
+    args = _args(n, qmax, tmax, seed)
+    q, t = args[0], args[1]
+    q[5, 10:40] = 4  # N runs in the query and the target
+    t[6, 5:30] = 4
+    return args
+
+
+@pytest.mark.parametrize("w,zdrop", [(100, 0), (100, 40), (300, 0),
+                                     (64, 100)])
+def test_banded_kernel_matches_plain(w, zdrop):
+    qmax = 1024 if w == 300 else 384
+    args = _banded_args(1200, qmax, qmax + 256)
+    p = extend.ExtendParams(w=w, zdrop=zdrop, opt_ext=True)
+    want = extend_banded.extend_batch_banded_plain(*args, p)
+    before = extend_banded.LAUNCHES
+    got = extend_banded.extend_batch_banded(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    assert extend_banded.LAUNCHES == before + 1
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_banded_wrapper_checks_inputs():
+    args = [a.cuda() for a in _banded_args(64, 384, 512)]
+    with pytest.raises(ValueError):  # window of 1152 lanes
+        extend_banded.extend_batch_banded(
+            *args, extend.ExtendParams(w=520, opt_ext=True))
+    with pytest.raises(ValueError):  # int32 query: the kernel takes int8
+        extend_banded.extend_batch_banded(args[0].int(), *args[1:],
+                                          extend.ExtendParams(w=100))
+
+
+@pytest.mark.parametrize("w,opt_ext,qmax,route", [
+    (20, True, 384, "K3"),     # band 128 < dense row 512
+    (100, True, 256, "K3"),    # --vanilla, 250 bp reads: 256 < 384
+    (100, True, 192, "K1"),    # band 256 = dense row 256
+    (20, False, 384, "K1"),    # no opt_ext: dense
+    (520, True, 2048, "K1"),   # window of 1152 lanes: past K3's registers
+])
+def test_extend_batch_auto_routes(w, opt_ext, qmax, route):
+    args = [a.cuda() for a in _banded_args(64, qmax, qmax + 128)]
+    p = extend.ExtendParams(w=w, opt_ext=opt_ext)
+    before = (extend_kernel.LAUNCHES, extend_banded.LAUNCHES)
+    got = extend.extend_batch_auto(*args, p)
+    torch.cuda.synchronize()
+    after = (extend_kernel.LAUNCHES, extend_banded.LAUNCHES)
+    assert after == ((before[0], before[1] + 1) if route == "K3"
+                     else (before[0] + 1, before[1]))
+    want = extend_kernel.extend_batch_plain(*(a.cpu() for a in args), p)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
 
 
 def _sw_args(n, qmax, tmax, seed=6, minsc=19):
@@ -87,7 +170,7 @@ def _sw_args(n, qmax, tmax, seed=6, minsc=19):
 
 @pytest.mark.parametrize("rev_skip", [0, 19])
 @pytest.mark.parametrize("n,qmax,tmax", [(1200, 192, 768), (1200, 40, 80),
-                                         (300, 600, 1024)])
+                                         (300, 600, 1024), (200, 150, 3072)])
 def test_sw_kernel_matches_plain(rev_skip, n, qmax, tmax):
     args = _sw_args(n, qmax, tmax)
     gaps = (6, 1, 6, 1, 1, rev_skip)

@@ -79,3 +79,42 @@ def test_options_take_the_ports_score_matrix():
     assert options.make_score_matrix is extend.make_score_matrix
     o = options.MemOptions(a=2, b=3)
     np.testing.assert_array_equal(o.mat, JaxOpts(a=2, b=3).mat)
+
+
+# the per-seed-object path's host helpers in pipeline/aligner.py, and the
+# job construction and survivorship of pipeline/seedflt.py, are copies;
+# only the launches (run_extension_jobs, the filters' _run_* and the
+# helpers they call) are the port's own
+ALIGNER_COPIED = ("ExtJob", "chain2aln_jobs", "merge_extension_results",
+                  "_dump_chains", "_dump_regs")
+SEEDFLT_COPIED = ("_SWJob", "_SHDJob")
+SEEDFLT_METHODS = ("add_read", "_add_sw", "_windows", "_add_shd", "run",
+                   "_apply_drops")
+
+
+def _methods(src, cls):
+    import ast
+
+    node = next(n for n in ast.parse(src).body
+                if getattr(n, "name", None) == cls)
+    return {n.name: ast.get_source_segment(src, n) for n in node.body
+            if hasattr(n, "name")}
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("pipeline/aligner.py", ALIGNER_COPIED),
+    ("pipeline/seedflt.py", SEEDFLT_COPIED)])
+def test_object_path_helpers_match_original(mod, names):
+    want = dict(_top_level(_read("bwamem_tpu", mod)))
+    got = dict(_top_level(_read("bwamem_tpu_torch", mod)))
+    for name in names:
+        assert got[name] == want[name], name
+
+
+def test_seed_filter_job_construction_matches_original():
+    want = _methods(_read("bwamem_tpu", "pipeline/seedflt.py"),
+                    "SeedFilterBatch")
+    got = _methods(_read("bwamem_tpu_torch", "pipeline/seedflt.py"),
+                   "SeedFilterBatch")
+    for name in SEEDFLT_METHODS:
+        assert got[name] == want[name], name

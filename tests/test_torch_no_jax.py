@@ -1,10 +1,11 @@
 """The port never imports jax or the JAX package, not even indirectly: in a
 subprocess whose import system refuses `jax*` and `bwamem_tpu` (but not
 `bwamem_tpu_torch`), import every module of the port, build an index,
-align single-end reads with --device cpu through the CLI, and align pairs
+align single-end reads with --device cpu through the CLI, align pairs
 from two files whose victims (read 2 without a seed) only mate rescue can
-place: the rescue's imports happen inside functions, so only a rescue that
-runs can show that none of them reaches jax."""
+place, align with -F (the SHD filter) and align 1 kb reads with -x pacbio
+(the per-seed SW filter and the per-seed-object path): those paths import
+inside functions, so only runs of them can show that none reaches jax."""
 import subprocess
 import sys
 import textwrap
@@ -47,6 +48,12 @@ SCRIPT = textwrap.dedent(r"""
     assert main(["index", d + "/ref.fa", "-p", d + "/idx"]) == 0
     assert main(["align", "--device", "cpu", d + "/idx", d + "/r.fq",
                  "-o", d + "/out.sam"]) == 0
+    assert main(["align", "--device", "cpu", "-F", d + "/idx", d + "/r.fq",
+                 "-o", d + "/shd.sam"]) == 0
+    write_fastq(d + "/long.fq", simulate_reads(
+        rng, contigs, 3, read_len=1000, sub=0.04, ins=0.03, dele=0.03))
+    assert main(["align", "--device", "cpu", "-x", "pacbio", d + "/idx",
+                 d + "/long.fq", "-o", d + "/pb.sam"]) == 0
 
     import chip_smoke
     from bwamem_tpu_torch.io.fastx import _CODE_LUT
@@ -78,3 +85,8 @@ def test_port_runs_with_jax_refused(tmp_path):
                and int(f[1]) & 0x80 and not int(f[1]) & 0x900]
     assert len(victims) == 4
     assert all(not int(f[1]) & 4 for f in victims)  # placed by rescue
+    for name, n in (("shd.sam", 11), ("pb.sam", 3)):
+        recs = [ln.split("\t") for ln in
+                (tmp_path / name).read_text().splitlines()
+                if not ln.startswith("@")]
+        assert sum(f[2] != "*" for f in recs) >= n, name

@@ -1,5 +1,6 @@
 """chip_smoke.py rehearsed on the CPU at a small size (its phases with the
-kernels' plain versions and --device cpu, SE and PE), plus its refusal to
+kernels' plain versions and --device cpu: SE, PE, long reads, --vanilla,
+-F and -x pacbio), plus its refusal to
 run — and to print a result — without a CUDA device or outside the
 repository."""
 import os
@@ -19,16 +20,27 @@ from tests.test_torch_index import native_lib  # noqa: E402,F401
 pytestmark = pytest.mark.usefixtures("native_lib")
 
 
+def _check_rec(rec):
+    assert {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms")} == dict(
+        max_abs_err=0, ms=None, plain_ms=None)
+    assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
+                                                       "operations")
+
+
 def test_kernel_phase_on_cpu():
-    rec = chip_smoke.kernel_phase(
-        "cpu", dict(N=200, QMAX=48, TMAX=96), timed=False)
-    assert rec == dict(max_abs_err=0, ms=None, plain_ms=None)
+    _check_rec(chip_smoke.kernel_phase(
+        "cpu", dict(N=200, QMAX=48, TMAX=96), timed=False))
 
 
 def test_sw_kernel_phase_on_cpu():
-    rec = chip_smoke.sw_kernel_phase(
-        "cpu", dict(N=200, QMAX=48, TMAX=96), timed=False)
-    assert rec == dict(max_abs_err=0, ms=None, plain_ms=None)
+    _check_rec(chip_smoke.sw_kernel_phase(
+        "cpu", dict(N=200, QMAX=48, TMAX=96), timed=False))
+
+
+def test_banded_kernel_phase_on_cpu():
+    _check_rec(chip_smoke.kernel_phase(
+        "cpu", dict(N=200, QMAX=300, TMAX=360), timed=False, kernel="K3",
+        variants=[(40, 0), (40, 30)]))
 
 
 @pytest.fixture(scope="module")
@@ -53,6 +65,22 @@ def test_pe_align_phase_on_cpu(world, monkeypatch):
     k1, k2, rate = chip_smoke.pe_align_phase(world, device="cpu",
                                              chunk_pairs=64)
     assert k1 == k2 == 0 and rate > 0  # CPU tensors launch no kernel
+
+
+def test_long_read_phases_on_cpu(world, monkeypatch):
+    """Phases 6-8 at a tiny size, with their SAM checks against a second
+    CPU run; CPU tensors launch no kernel."""
+    from bwamem_tpu_torch.io.fastx import read_fastx
+
+    monkeypatch.chdir(world)  # the CLI appends to ./time.log
+    contigs = [(r.name, "".join("ACGTN"[c] for c in r.seq))
+               for r in read_fastx(os.path.join(world, "ref.fa"))]
+    runs = chip_smoke.long_read_phases(world, contigs, device="cpu",
+                                       sizes=(4, 16, 32, 4),
+                                       heads=(2, 8, 16, 2))
+    assert set(runs) == {"long", "vanilla", "shd", "pacbio"}
+    for r in runs.values():
+        assert r["K1"] == r["K2"] == r["K3"] == 0 and r["reads_per_s"] > 0
 
 
 @pytest.mark.parametrize("alone", [False, True])
