@@ -123,23 +123,19 @@ def extend_batch_banded(query, target, qlen, tlen, h0, mat, params):
     return _fields(out)
 
 
-def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params,
-                              stats: dict | None = None):
+def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params):
     """Plain PyTorch version of the kernel: the Pallas kernel's window row
     loop, one target row for all alignments per step; lane v of row i is
     column u = i + v - w, the diagonal is the same lane of the previous
     window, E comes from the lane to its right, F is an exclusive running
     max along the window (torch.cummax). Same contract as
-    extend_batch_banded. With a `stats` dict, stats["rows"] receives the
-    (N,) count of target rows each alignment ran (its DP work)."""
+    extend_batch_banded, plus `rows`: the (N,) count of target rows each
+    alignment ran (its DP work)."""
     N = query.shape[0]
     if N > _PLAIN_BLOCK:  # bound the temporaries
-        subs = [{} for _ in range(0, N, _PLAIN_BLOCK)]
         parts = [extend_batch_banded_plain(*(a[i:i + _PLAIN_BLOCK] for a in (
-            query, target, qlen, tlen, h0)), mat, params, sub)
-            for i, sub in zip(range(0, N, _PLAIN_BLOCK), subs)]
-        if stats is not None:
-            stats["rows"] = torch.cat([sub["rows"] for sub in subs])
+            query, target, qlen, tlen, h0)), mat, params)
+            for i in range(0, N, _PLAIN_BLOCK)]
         return {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
     p = params
     w = int(p.w)
@@ -254,7 +250,5 @@ def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params,
         qi = i + WP - w - 1
         qnew = q[:, qi:qi + 1] if 0 <= qi < QMAX else four
         qwin = torch.cat([qwin[:, 1:], qnew], dim=1)
-    if stats is not None:
-        stats["rows"] = rows
-    out = torch.stack([best, qle, tle, gscore, gtle, max_off], dim=1)
-    return _fields(out.to(torch.int32))
+    out = torch.stack([best, qle, tle, gscore, gtle, max_off, rows], dim=1)
+    return dict(_fields(out.to(torch.int32)), rows=out[:, 6].to(torch.int32))

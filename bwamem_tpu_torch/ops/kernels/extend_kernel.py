@@ -140,21 +140,17 @@ def _wide_scratch(N: int, QMAX: int, device):
     return torch.empty(N * 2 * ncols, dtype=torch.int32, device=device)
 
 
-def extend_batch_plain(query, target, qlen, tlen, h0, mat, params,
-                       stats: dict | None = None):
+def extend_batch_plain(query, target, qlen, tlen, h0, mat, params):
     """Plain PyTorch version of the kernel: the row loop of the JAX
     twin's extend_batch, one target row for all alignments per step, the
     intra-row F dependency closed with torch.cummax. Same contract as
-    extend_batch. With a `stats` dict, stats["rows"] receives the (N,)
-    count of target rows each alignment ran (its DP work)."""
+    extend_batch, plus `rows`: the (N,) count of target rows each
+    alignment ran (its DP work)."""
     N = query.shape[0]
-    if N > _PLAIN_BLOCK:  # bound the temporaries
-        subs = [{} for _ in range(0, N, _PLAIN_BLOCK)]
+    if N > _PLAIN_BLOCK:  # bound the (N, QMAX) temporaries
         parts = [extend_batch_plain(*(a[i:i + _PLAIN_BLOCK] for a in (
-            query, target, qlen, tlen, h0)), mat, params, sub)
-            for i, sub in zip(range(0, N, _PLAIN_BLOCK), subs)]
-        if stats is not None:
-            stats["rows"] = torch.cat([sub["rows"] for sub in subs])
+            query, target, qlen, tlen, h0)), mat, params)
+            for i in range(0, N, _PLAIN_BLOCK)]
         return {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
     p = params
     dev = query.device
@@ -260,7 +256,5 @@ def extend_batch_plain(query, target, qlen, tlen, h0, mat, params,
 
         H = torch.where(active[:, None], Hn, H)
         E = torch.where(active[:, None], En, E)
-    if stats is not None:
-        stats["rows"] = rows
-    out = torch.stack([best, qle, tle, gscore, gtle, max_off], dim=1)
-    return _fields(out.to(torch.int32))
+    out = torch.stack([best, qle, tle, gscore, gtle, max_off, rows], dim=1)
+    return dict(_fields(out.to(torch.int32)), rows=out[:, 6].to(torch.int32))

@@ -255,6 +255,63 @@ def _shd_pass(pairs, device) -> np.ndarray:
     return ok.cpu().numpy()
 
 
+def _sw_window(idx: FMIndex, query, qb0: int, ln: int, rb0: int):
+    """The +-MEM_SHORT_EXT windows of one seed for the SW filter
+    (reference mem_seed_sw src/bwamem.c:774-807): (query window,
+    reference window), or None when either reaches MEM_SHORT_LEN and the
+    seed stays untested."""
+    l_pac = idx.l_pac
+    qb = max(qb0 - MEM_SHORT_EXT, 0)
+    qe = min(qb0 + ln + MEM_SHORT_EXT, len(query))
+    rb = max(rb0 - MEM_SHORT_EXT, 0)
+    re_ = min(rb0 + ln + MEM_SHORT_EXT, l_pac << 1)
+    mid = (rb0 + rb0 + ln) >> 1
+    if rb < l_pac < re_:
+        if mid < l_pac:
+            re_ = l_pac
+        else:
+            rb = l_pac
+    if qe - qb >= MEM_SHORT_LEN or re_ - rb >= MEM_SHORT_LEN:
+        return None
+    rseq = idx.fetch_seq_rid(rb, re_, mid=mid)[2]
+    return np.asarray(query[qb:qe], np.int32), rseq.astype(np.int32)
+
+
+def _shd_flanks(idx: FMIndex, query, qb: int, ln: int, rb: int) -> list:
+    """The SHD_WIN flanks of one seed for -F: (read window, reference
+    window) of the right flank when the seed ends before the read does
+    (reference :829-896), then of the left flank, both reversed, when it
+    starts after the read's first base (reference :897-957)."""
+    l_query, l_pac = len(query), idx.l_pac
+    qe, re_ = qb + ln, rb + ln
+    out = []
+    if qe < l_query:
+        qbeg = max(qe - SHD_OVL, 0)
+        qend = min(qbeg + SHD_WIN, l_query)
+        rbeg = max(re_ - SHD_OVL, 0)
+        rend = min(rbeg + SHD_WIN, l_pac << 1)
+        mid = (rbeg + rend) >> 1
+        if rbeg < l_pac < rend:
+            rend = l_pac if mid < l_pac else rend
+            rbeg = rbeg if mid < l_pac else l_pac
+        rseq = idx.fetch_seq_rid(rbeg, rend, mid)[2]
+        out.append((np.asarray(query[qbeg:qend], np.int32),
+                    rseq.astype(np.int32)))
+    if qb > 0:
+        qend = min(qb + SHD_OVL, l_query)
+        qbeg = max(qend - SHD_WIN, 0)
+        rend = min(rb + SHD_OVL, l_pac << 1)
+        rbeg = max(rend - SHD_WIN, 0)
+        mid = (rbeg + rend) >> 1
+        if rbeg < l_pac < rend:
+            rend = l_pac if mid < l_pac else rend
+            rbeg = rbeg if mid < l_pac else l_pac
+        rseq = idx.fetch_seq_rid(rbeg, rend, mid)[2]
+        out.append((np.asarray(query[qbeg:qend], np.int32)[::-1].copy(),
+                    rseq[::-1].astype(np.int32)))
+    return out
+
+
 def filter_seed_arrays(opt: MemOptions, idx: FMIndex, raw: dict,
                        seqs: list, device="cuda") -> None:
     """Per-seed SW/SHD filtering over chain_batch_raw's FLAT arrays —
@@ -270,7 +327,6 @@ def filter_seed_arrays(opt: MemOptions, idx: FMIndex, raw: dict,
     nC, nS = raw["n_chains"], raw["n_seeds"]
     if nC == 0 or nS == 0:
         return
-    l_pac = idx.l_pac
     c_read = raw["c_read"][:nC]
     c_soff = raw["c_soff"][:nC]
     c_ns = raw["c_ns"][:nC]
@@ -285,39 +341,10 @@ def filter_seed_arrays(opt: MemOptions, idx: FMIndex, raw: dict,
     if opt.shd_filter:
         jobs: list[tuple[int, np.ndarray, np.ndarray]] = []  # (si, rd, rf)
         for si in range(nS):
-            query = seqs[seed_read[si]]
-            l_query = len(query)
-            qb, ln = int(sq[si]), int(sl[si])
-            rbs = int(sr[si])
-            qe, re_ = qb + ln, rbs + ln
-            tested = False
-            if qe < l_query:  # right flank (reference :829-896)
-                qbeg = max(qe - SHD_OVL, 0)
-                qend = min(qbeg + SHD_WIN, l_query)
-                rbeg = max(re_ - SHD_OVL, 0)
-                rend = min(rbeg + SHD_WIN, l_pac << 1)
-                mid = (rbeg + rend) >> 1
-                if rbeg < l_pac < rend:
-                    rend = l_pac if mid < l_pac else rend
-                    rbeg = rbeg if mid < l_pac else l_pac
-                rbeg, rend, rseq, _ = idx.fetch_seq_rid(rbeg, rend, mid)
-                jobs.append((si, np.asarray(query[qbeg:qend], np.int32),
-                             rseq.astype(np.int32)))
-                tested = True
-            if qb > 0:        # left flank, reversed (reference :897-957)
-                qend = min(qb + SHD_OVL, l_query)
-                qbeg = max(qend - SHD_WIN, 0)
-                rend = min(rbs + SHD_OVL, l_pac << 1)
-                rbeg = max(rend - SHD_WIN, 0)
-                mid = (rbeg + rend) >> 1
-                if rbeg < l_pac < rend:
-                    rend = l_pac if mid < l_pac else rend
-                    rbeg = rbeg if mid < l_pac else l_pac
-                rbeg, rend, rseq, _ = idx.fetch_seq_rid(rbeg, rend, mid)
-                w = np.asarray(query[qbeg:qend], np.int32)[::-1].copy()
-                jobs.append((si, w, rseq[::-1].astype(np.int32)))
-                tested = True
-            if tested:
+            flanks = _shd_flanks(idx, seqs[seed_read[si]], int(sq[si]),
+                                 int(sl[si]), int(sr[si]))
+            jobs += [(si, rd, rf) for rd, rf in flanks]
+            if flanks:
                 keep[si] = False  # survives only if a side passes
         if jobs:
             ok = _shd_pass([(rd, rf) for _, rd, rf in jobs], device)
@@ -347,25 +374,10 @@ def filter_seed_arrays(opt: MemOptions, idx: FMIndex, raw: dict,
         for si in np.flatnonzero(active[seed_read]
                                  & (sl < MEM_SHORT_LEN)):
             si = int(si)
-            query = seqs[seed_read[si]]
-            l_query = len(query)
-            qb0, ln = int(sq[si]), int(sl[si])
-            rb0 = int(sr[si])
-            qb = max(qb0 - MEM_SHORT_EXT, 0)
-            qe = min(qb0 + ln + MEM_SHORT_EXT, l_query)
-            rb = max(rb0 - MEM_SHORT_EXT, 0)
-            re_ = min(rb0 + ln + MEM_SHORT_EXT, l_pac << 1)
-            mid = (rb0 + rb0 + ln) >> 1
-            if rb < l_pac < re_:
-                if mid < l_pac:
-                    re_ = l_pac
-                else:
-                    rb = l_pac
-            if qe - qb >= MEM_SHORT_LEN or re_ - rb >= MEM_SHORT_LEN:
-                continue
-            rb, re_, rseq, _ = idx.fetch_seq_rid(rb, re_, mid=mid)
-            sjobs.append((si, np.asarray(query[qb:qe], np.int32),
-                          rseq.astype(np.int32)))
+            win = _sw_window(idx, seqs[seed_read[si]], int(sq[si]),
+                             int(sl[si]), int(sr[si]))
+            if win is not None:
+                sjobs.append((si, *win))
         if sjobs:
             scores = _sw_scores(opt, [(qw, rw) for _, qw, rw in sjobs],
                                 device)

@@ -12,11 +12,16 @@ Phases (each prints its own lines; any failure exits nonzero):
      int32 rate, for the rows these inputs run):
      K1 at QMAX 192, TMAX 384, 32768 jobs + edge lanes, all four
      (opt_ext, zdrop) variants, and on its wide route at QMAX 1024,
-     TMAX 2048, 4096 jobs, all four variants; K2 at QMAX 192, TMAX 768,
-     4096 jobs + edge lanes, rev_skip 0/19 x minsc 0/19 (the plain version
-     timed on the main-path variant, rev_skip 19 and minsc 19, only); K3
-     at QMAX 256, TMAX 384, w=100, 32768 jobs + edge lanes, zdrop 0 and
-     100, and at QMAX 1024, TMAX 1536, w=300, 4096 jobs;
+     TMAX 2048, 4096 jobs, all four variants; K1 at the -x pacbio object
+     path's three buckets (QMAX 64, 192 and 1024 against TMAX 1024, 768
+     and 2048, 4096 jobs each) with its scoring (-B 1, -O 1, -E 1, no
+     clipping bonus); K2 at QMAX 192, TMAX 768, 4096 jobs + edge lanes,
+     rev_skip 0/19 x minsc 0/19 (the plain version timed on the
+     main-path variant, rev_skip 19 and minsc 19, only), and at the seed
+     filter's 200 x 200 windows with rev_skip 0 and minsc 0, 65536 jobs
+     at the default scoring and 20480 at -x pacbio's; K3 at QMAX 256,
+     TMAX 384, w=100, 32768 jobs + edge lanes, zdrop 0 and 100, and at
+     QMAX 1024, TMAX 1536, w=300, 4096 jobs;
   3. build the world: a 4.6 Mbp repeat-rich simulated genome (fixed seed),
      indexed with `python -m bwamem_tpu_torch index -r 4`; 32768 SE reads
      and 16384 FR pairs (insert max(260, N(350, 50)), 1% of the pairs with
@@ -79,6 +84,19 @@ VICTIM_EVERY = 100  # 1% of the pairs: read 2 unseedable, only rescue
 SW_SHAPES = dict(N=4096, QMAX=192, TMAX=768)
 SW_VARIANTS = [(0, 0), (0, 19), (19, 0), (19, 19)]  # (rev_skip, minsc)
 SW_MAIN = (19, 19)  # the rescue path: rev_skip = minsc = min_seed_len
+# the per-seed SW filter: windows of at most MEM_SHORT_LEN = 200 bases,
+# rev_skip 0, minsc 0; about phase 6's job count (16 a 1 kb read), and
+# phase 8's for -x pacbio (20 a read)
+FILTER_SHAPES = dict(N=65_536, QMAX=200, TMAX=200)
+FILTER_PB_SHAPES = dict(N=20_480, QMAX=200, TMAX=200)
+# -x pacbio: match 1, mismatch 1, gap open 1 and extension 1 both ways,
+# clipping penalty 0 (the extension's end bonus), no band, no z-drop
+PACBIO = dict(a=1, b=1, o_del=1, e_del=1, o_ins=1, e_ins=1, end_bonus=0)
+# the object path's buckets at 1 kb (QMAX <= 64, <= 192, the rest) with
+# targets up to the whole TMAX
+PB_SHAPES = [dict(N=4096, QMAX=64, TMAX=1024, tail=1024),
+             dict(N=4096, QMAX=192, TMAX=768, tail=768),
+             dict(N=4096, QMAX=1024, TMAX=2048, tail=2048)]
 
 
 def phase(name: str) -> None:
@@ -93,10 +111,11 @@ def card_info() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def make_jobs(rng, N, QMAX, TMAX):
+def make_jobs(rng, N, QMAX, TMAX, tail=160):
     """Extension jobs shaped like the main path's: the target is the query
-    followed by random bases, with 2% substitutions and 1% N bases; h0 is
-    a seed score; edge lanes: tlen 0, qlen 1, large h0, full-width lanes."""
+    followed by random bases (up to `tail` more than the query), with 2%
+    substitutions and 1% N bases; h0 is a seed score; edge lanes: tlen 0,
+    qlen 1, large h0, full-width lanes."""
     import numpy as np
 
     q = rng.integers(0, 4, (N, QMAX)).astype(np.int8)
@@ -106,7 +125,7 @@ def make_jobs(rng, N, QMAX, TMAX):
     t[mut] = rng.integers(0, 4, int(mut.sum()))
     q[rng.random((N, QMAX)) < 0.01] = 4
     ql = rng.integers(1, QMAX + 1, N).astype(np.int32)
-    tl = np.minimum(ql + rng.integers(0, 160, N), TMAX).astype(np.int32)
+    tl = np.minimum(ql + rng.integers(0, tail, N), TMAX).astype(np.int32)
     h0 = rng.integers(19, 80, N).astype(np.int32)
     ql[0], tl[1], h0[2] = 1, 0, 100_000
     ql[3], tl[3] = QMAX, TMAX
@@ -141,9 +160,9 @@ def _bound(nbytes: int, ops: int) -> dict:
 
 
 def _ext_bound(args, rows, opt_ext: bool, w: int) -> dict:
-    """K1/K3 bound on these inputs: every row an alignment ran costs
-    OPS_PER_CELL operations per live column (qlen + 1 columns, or the
-    band's 2w + 2 when it is narrower)."""
+    """K1/K3 bound on these inputs: every row an alignment ran (`rows`,
+    from the plain version) costs OPS_PER_CELL operations per live column
+    (qlen + 1 columns, or the band's 2w + 2 when it is narrower)."""
     q, t, ql = args[0], args[1], args[2]
     cols = ql.long().clamp(max=q.shape[1]) + 1
     if opt_ext:
@@ -154,10 +173,12 @@ def _ext_bound(args, rows, opt_ext: bool, w: int) -> dict:
 
 
 def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
-                 kernel: str = "K1", variants=None, product=None):
+                 kernel: str = "K1", variants=None, product=None,
+                 scoring=None):
     """Extension kernel vs its plain version on `device`, exact, for each
-    (opt_ext, zdrop) variant (K3: each (w, zdrop)). Returns the product
-    variant's record (times in ms, None when not timed; its bound)."""
+    (opt_ext, zdrop) variant (K3: each (w, zdrop)), at the default scoring
+    or at `scoring` (PACBIO). Returns the product variant's record (times
+    in ms, None when not timed; its bound)."""
     import numpy as np
     import torch
 
@@ -165,41 +186,43 @@ def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
     from bwamem_tpu_torch.ops.kernels import extend_banded, extend_kernel
 
     shapes = shapes or KERNEL_SHAPES
+    gaps = dict(scoring or {})
+    a, b = gaps.pop("a", 1), gaps.pop("b", 4)
     if kernel == "K3":
         run_k, run_p = (extend_banded.extend_batch_banded,
                         extend_banded.extend_batch_banded_plain)
         variants = variants or [(100, 0)]
-        params = [ExtendParams(w=w, zdrop=z, opt_ext=True)
+        params = [ExtendParams(w=w, zdrop=z, opt_ext=True, **gaps)
                   for w, z in variants]
         name = "K3 extend_banded"
     else:
         run_k, run_p = (extend_kernel.extend_batch,
                         extend_kernel.extend_batch_plain)
         variants = variants or VARIANTS
-        params = [ExtendParams(w=100 if o else 300, zdrop=z, opt_ext=o)
-                  for o, z in variants]
-        name = "K1 extend_dense"
+        params = [ExtendParams(w=100 if o else 300, zdrop=z, opt_ext=o,
+                               **gaps) for o, z in variants]
+        name = "K1 extend_dense" + (" pacbio" if scoring else "")
     product = product or variants[0]
     rng = np.random.default_rng(2024)
-    arrays = make_jobs(rng, shapes["N"], shapes["QMAX"], shapes["TMAX"])
-    args = [torch.from_numpy(a).to(device)
-            for a in (*arrays, make_score_matrix(1, 4))]
+    arrays = make_jobs(rng, shapes["N"], shapes["QMAX"], shapes["TMAX"],
+                       shapes.get("tail", 160))
+    args = [torch.from_numpy(x).to(device)
+            for x in (*arrays, make_score_matrix(a, b))]
     rec = None
     for var, p in zip(variants, params):
-        stats = {}
-        want = run_p(*args, p, stats)
+        want = run_p(*args, p)
         got = run_k(*args, p)
         if device == "cuda":
             torch.cuda.synchronize()
         err = max(int((got[k].long() - want[k].long()).abs().max())
-                  for k in want)
+                  for k in got)
         if err != 0:
             raise SystemExit(f"{name} != plain for {var}: max abs err {err}")
         ms = plain_ms = None
         if timed:
             ms = _median_ms(lambda: run_k(*args, p))
             plain_ms = _median_ms(lambda: run_p(*args, p))
-        bound = _ext_bound(args, stats["rows"], p.opt_ext, p.w)
+        bound = _ext_bound(args, want["rows"], p.opt_ext, p.w)
         print(f"{name} {var} QMAX {shapes['QMAX']} TMAX {shapes['TMAX']}: "
               f"exact on {shapes['N']} jobs; kernel {ms} ms, plain "
               f"{plain_ms} ms, bound {bound['bound_ms']:.4f} ms "
@@ -233,10 +256,37 @@ def make_sw_jobs(rng, N, QMAX, TMAX):
     return q, t, ql, tl
 
 
-def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True):
-    """K2 vs its plain version on `device` for rev_skip 0/19 x minsc 0/19.
-    Returns the main-path variant's record (times in ms; None when not
-    timed). Only the main-path variant times the plain version."""
+def make_filter_jobs(rng, N, QMAX, TMAX):
+    """Seed-filter-shaped local-SW jobs: the windows 50 bases either side
+    of a seed, a query window of 100 to QMAX - 1 bases against a
+    reference window within 3 bases of its length; four in five are the
+    reference with 5% substitutions (a seed that stays), the rest random
+    (one that goes); 1% N bases. Edge lanes as in make_sw_jobs."""
+    import numpy as np
+
+    t = rng.integers(0, 4, (N, TMAX)).astype(np.int8)
+    ql = rng.integers(100, QMAX, N).astype(np.int32)
+    tl = np.clip(ql + rng.integers(-3, 4, N), 1, TMAX - 1).astype(np.int32)
+    q = rng.integers(0, 4, (N, QMAX)).astype(np.int8)
+    hit = rng.random(N) < 0.8
+    q[hit] = t[hit, :QMAX]
+    mut = rng.random((N, QMAX)) < 0.05
+    q[mut] = rng.integers(0, 4, int(mut.sum()))
+    q[rng.random((N, QMAX)) < 0.01] = 4
+    ql[0], tl[1], ql[2] = 0, 0, 1
+    q[3] = 4
+    ql[4], tl[4] = QMAX, TMAX
+    return q, t, ql, tl
+
+
+def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
+                    variants=None, product=SW_MAIN, jobs=None,
+                    scoring=None, label: str = "rescue"):
+    """K2 vs its plain version on `device` for each (rev_skip, minsc)
+    variant (by default the rescue path's rev_skip 0/19 x minsc 0/19), at
+    the default scoring or at `scoring` (PACBIO). Returns the `product`
+    variant's record (times in ms; None when not timed). Only that
+    variant times the plain version."""
     import numpy as np
     import torch
 
@@ -244,16 +294,19 @@ def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True):
     from bwamem_tpu_torch.ops.kernels import swalign_kernel
 
     shapes = shapes or SW_SHAPES
+    sc = {**dict(a=1, b=4, o_del=6, e_del=1, o_ins=6, e_ins=1),
+          **(scoring or {})}
     rng = np.random.default_rng(2025)
-    q, t, ql, tl = make_sw_jobs(rng, shapes["N"], shapes["QMAX"],
-                                shapes["TMAX"])
-    mat = make_score_matrix(1, 4)
+    q, t, ql, tl = (jobs or make_sw_jobs)(rng, shapes["N"], shapes["QMAX"],
+                                          shapes["TMAX"])
+    mat = make_score_matrix(sc["a"], sc["b"])
     main_rec = None
-    for rev_skip, minsc in SW_VARIANTS:
+    for rev_skip, minsc in variants or SW_VARIANTS:
         ms_arr = np.full(len(ql), minsc, np.int32)
         args = [torch.from_numpy(a).to(device)
                 for a in (q, t, ql, tl, ms_arr, mat)]
-        gaps = (6, 1, 6, 1, 1, rev_skip)  # o_del e_del o_ins e_ins a
+        gaps = (sc["o_del"], sc["e_del"], sc["o_ins"], sc["e_ins"], sc["a"],
+                rev_skip)
 
         def run():
             return swalign_kernel.sw_align_batch(*args, *gaps)
@@ -272,7 +325,7 @@ def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True):
         ms = plain_ms = None
         if timed:
             ms = _median_ms(run)
-            if (rev_skip, minsc) == SW_MAIN:
+            if (rev_skip, minsc) == product:
                 plain_ms = _median_ms(run_plain)
         hits = int((want[0] >= 19).sum())
         # forward sweep over every row and query column, reverse sweep
@@ -285,12 +338,13 @@ def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True):
         bound = _bound(q.size + t.size + 3 * 4 * len(ql) + 100
                        + 6 * 4 * len(ql),
                        OPS_PER_CELL * int(fwd + rev.sum()))
-        print(f"K2 swalign_local rev_skip={rev_skip} minsc={minsc}: exact "
+        print(f"K2 swalign_local {label} QMAX {shapes['QMAX']} TMAX "
+              f"{shapes['TMAX']} rev_skip={rev_skip} minsc={minsc}: exact "
               f"on {shapes['N']} jobs ({hits} with score >= 19); kernel "
               f"{ms} ms, plain {plain_ms} ms, bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})",
               flush=True)
-        if (rev_skip, minsc) == SW_MAIN:
+        if (rev_skip, minsc) == product:
             main_rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             **bound)
     return main_rec
@@ -672,6 +726,14 @@ def main() -> int:
     k1 = kernel_phase("cuda")
     k2 = sw_kernel_phase("cuda")
     k1_wide = kernel_phase("cuda", WIDE_SHAPES)
+    k2_flt = sw_kernel_phase("cuda", FILTER_SHAPES, variants=[(0, 0)],
+                             product=(0, 0), jobs=make_filter_jobs,
+                             label="seed filter")
+    sw_kernel_phase("cuda", FILTER_PB_SHAPES, variants=[(0, 0)],
+                    product=(0, 0), jobs=make_filter_jobs, scoring=PACBIO,
+                    label="seed filter -x pacbio")
+    k1_pb = [kernel_phase("cuda", sh, variants=[(False, 0)], scoring=PACBIO)
+             for sh in PB_SHAPES]
     k3 = kernel_phase("cuda", K3_SHAPES, kernel="K3", variants=K3_VARIANTS)
     kernel_phase("cuda", K3_WIDE_SHAPES, kernel="K3", variants=[(300, 0)])
 
@@ -709,6 +771,14 @@ def main() -> int:
              source="bwamem_tpu_torch/csrc/extend_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",
              launches=runs["long"]["K1_wide"], **k1_wide),
+        dict(name="extend_dense_pacbio", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/extend_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",
+             launches=runs["pacbio"]["K1"], **k1_pb[0]),
+        dict(name="swalign_local_seedflt", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
+             launches=runs["long"]["K2"], **k2_flt),
         dict(name="extend_banded", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_banded.cu",
              replaces="bwamem_tpu/ops/pallas/extend_banded.py:241",

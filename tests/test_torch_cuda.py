@@ -1,14 +1,16 @@
 """The kernels on the card. K1 (dense extension): exact against its plain
 PyTorch version for all four (opt_ext, zdrop > 0) variants at the main
 path's widths, on its wide route at QMAX 1024, 1536 and 4096 and with a
-global row buffer past 28671 columns, one launch counted per call, the
+global row buffer past 28671 columns, at -x pacbio's scoring in the
+object path's three buckets, one launch counted per call, the
 wrapper's input checks. K3 (banded extension): exact against its plain
 version for (w, zdrop) in (100, 0), (100, 40), (300, 0), (64, 100) with
 degenerate lanes, one launch per call, and extend_batch_auto sends the
 banded shapes to it and the rest to K1. K2 (local SW): exact against its
 plain version at the rescue path's widths and three others (TMAX 3072:
-exactly 48 KB of row maxima per block), with and without rev_skip, one
-launch per call, the wrapper's input checks. Every
+exactly 48 KB of row maxima per block), with and without rev_skip, and at
+the seed filter's 200 x 200 windows (minsc 0, rev_skip 0) at the default
+and -x pacbio scoring, one launch per call, the wrapper's input checks. Every
 test needs an NVIDIA GPU (marker `cuda`) and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -29,6 +31,7 @@ from bwamem_tpu_torch.ops import extend  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import extend_banded  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import extend_kernel  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import swalign_kernel  # noqa: E402
+from chip_smoke import PACBIO, make_filter_jobs  # noqa: E402
 from chip_smoke import make_jobs, make_sw_jobs  # noqa: E402
 
 pytestmark = [
@@ -39,11 +42,11 @@ pytestmark = [
 VARIANTS = [(False, 0), (False, 40), (True, 0), (True, 40)]
 
 
-def _args(n=2000, qmax=192, tmax=384, seed=5):
+def _args(n=2000, qmax=192, tmax=384, seed=5, tail=160, b=4):
     rng = np.random.default_rng(seed)
-    arrays = make_jobs(rng, n, qmax, tmax)
+    arrays = make_jobs(rng, n, qmax, tmax, tail)
     return [torch.from_numpy(a) for a in (*arrays,
-                                          extend.make_score_matrix(1, 4))]
+                                          extend.make_score_matrix(1, b))]
 
 
 @pytest.mark.parametrize("opt_ext,zdrop", VARIANTS)
@@ -56,7 +59,7 @@ def test_kernel_matches_plain(opt_ext, zdrop, qmax, tmax):
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
     assert extend_kernel.LAUNCHES == before + 1
-    for k in want:
+    for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
@@ -85,7 +88,23 @@ def test_kernel_wide_route_matches_plain(opt_ext, zdrop, qmax):
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
     assert extend_kernel.LAUNCHES == before + 1
-    for k in want:
+    for k in got:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("qmax,tmax", [(64, 1024), (192, 768), (1024, 2048)])
+def test_kernel_pacbio_matches_plain(qmax, tmax):
+    """-x pacbio's scoring (mismatch 1, gap open and extension 1, no end
+    bonus) at the object path's buckets, targets up to the whole TMAX."""
+    args = _args(300 if qmax > 192 else 1500, qmax, tmax, tail=tmax, b=1)
+    gaps = {k: v for k, v in PACBIO.items() if k not in ("a", "b")}
+    p = extend.ExtendParams(w=300, zdrop=0, opt_ext=False, **gaps)
+    want = extend_kernel.extend_batch_plain(*args, p)
+    before = extend_kernel.LAUNCHES
+    got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    assert extend_kernel.LAUNCHES == before + 1
+    for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
@@ -100,7 +119,7 @@ def test_kernel_wide_route_global_rows():
     want = extend_kernel.extend_batch_plain(*args, p)
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
-    for k in want:
+    for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
@@ -123,7 +142,7 @@ def test_banded_kernel_matches_plain(w, zdrop):
     got = extend_banded.extend_batch_banded(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
     assert extend_banded.LAUNCHES == before + 1
-    for k in want:
+    for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
@@ -154,7 +173,7 @@ def test_extend_batch_auto_routes(w, opt_ext, qmax, route):
     assert after == ((before[0], before[1] + 1) if route == "K3"
                      else (before[0] + 1, before[1]))
     want = extend_kernel.extend_batch_plain(*(a.cpu() for a in args), p)
-    for k in want:
+    for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
@@ -174,6 +193,26 @@ def _sw_args(n, qmax, tmax, seed=6, minsc=19):
 def test_sw_kernel_matches_plain(rev_skip, n, qmax, tmax):
     args = _sw_args(n, qmax, tmax)
     gaps = (6, 1, 6, 1, 1, rev_skip)
+    want = swalign_kernel.sw_align_batch_plain(*args, *gaps)
+    before = swalign_kernel.LAUNCHES
+    got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
+    torch.cuda.synchronize()
+    assert swalign_kernel.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("scoring", ["default", "pacbio"])
+def test_sw_kernel_seed_filter_shape(scoring):
+    """The per-seed SW filter's launch: 200 x 200 windows, rev_skip 0 and
+    minsc 0, at the default scoring and at -x pacbio's."""
+    rng = np.random.default_rng(8)
+    q, t, ql, tl = make_filter_jobs(rng, 2000, 200, 200)
+    sc = PACBIO if scoring == "pacbio" else dict(a=1, b=4, o_del=6, e_del=1,
+                                                 o_ins=6, e_ins=1)
+    args = [torch.from_numpy(a) for a in (
+        q, t, ql, tl, np.zeros(len(ql), np.int32),
+        extend.make_score_matrix(sc["a"], sc["b"]))]
+    gaps = (sc["o_del"], sc["e_del"], sc["o_ins"], sc["e_ins"], sc["a"], 0)
     want = swalign_kernel.sw_align_batch_plain(*args, *gaps)
     before = swalign_kernel.LAUNCHES
     got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)

@@ -37,6 +37,20 @@ def test_sw_kernel_phase_on_cpu():
         "cpu", dict(N=200, QMAX=48, TMAX=96), timed=False))
 
 
+def test_pacbio_kernel_phase_on_cpu():
+    _check_rec(chip_smoke.kernel_phase(
+        "cpu", dict(N=200, QMAX=64, TMAX=256, tail=256), timed=False,
+        variants=[(False, 0)], scoring=chip_smoke.PACBIO))
+
+
+@pytest.mark.parametrize("scoring", [None, chip_smoke.PACBIO])
+def test_seed_filter_sw_kernel_phase_on_cpu(scoring):
+    _check_rec(chip_smoke.sw_kernel_phase(
+        "cpu", dict(N=200, QMAX=200, TMAX=200), timed=False,
+        variants=[(0, 0)], product=(0, 0), jobs=chip_smoke.make_filter_jobs,
+        scoring=scoring, label="seed filter"))
+
+
 def test_banded_kernel_phase_on_cpu():
     _check_rec(chip_smoke.kernel_phase(
         "cpu", dict(N=200, QMAX=300, TMAX=360), timed=False, kernel="K3",
