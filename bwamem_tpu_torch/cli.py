@@ -1,9 +1,11 @@
-"""Command-line interface: `index` and `align` of single-end reads or of
-pairs (two files, or one interleaved file with -p; `gase_aln` and `mem`
-accepted as aliases), with the JAX package's flags plus --device.
+"""Command-line interface: `index`, `ingest` (a reference-format index to
+the native format), `fastmap` (the SMEMs of each read) and `align` of
+single-end reads or of pairs (two files, or one interleaved file with -p;
+`gase_aln` and `mem` accepted as aliases), with the JAX package's flags
+plus --device.
 
-Multi-device runs and the seeding variants that are not ported yet (-u
-2/3/4, -g) exit with a one-line error naming the ROADMAP item.
+Multi-device runs are not ported yet and exit with a one-line error
+naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -163,10 +165,40 @@ def main(argv=None) -> int:
         pa = sub.add_parser(name, help="align single- or paired-end reads")
         _add_align_args(pa)
 
+    pg = sub.add_parser(
+        "ingest",
+        help="convert a reference-format index (bwa index two-pass "
+             "output: .ann/.amb/.pac/.bwt/.sa) to the native .bmt format")
+    pg.add_argument("ref_prefix")
+    pg.add_argument("-p", default=None, dest="prefix",
+                    help="output prefix [ref_prefix]")
+    pg.add_argument("-r", type=int, default=4, dest="sa_intv",
+                    help="suffix-array sampling interval (power of 2)")
+    pg.add_argument("--no-verify", action="store_true",
+                    help="skip the P.sa cross-check during the SA walk")
+
+    pf = sub.add_parser("fastmap",
+                        help="dump SMEMs per read (reference: main_fastmap)")
+    pf.add_argument("index_prefix")
+    pf.add_argument("reads")
+    pf.add_argument("-l", type=int, default=17, dest="min_seed_len",
+                    help="min SMEM length to output")
+    pf.add_argument("-w", type=int, default=20, dest="max_occ_out",
+                    help="max interval size to find coordinates")
+    pf.add_argument("-p", action="store_true", dest="print_seq",
+                    help="print the query sequence on the SQ line")
+    pf.add_argument("--device", default="cuda",
+                    help="torch device for the seeding [cuda]; there is no "
+                         "automatic fallback to the CPU")
+
     args = ap.parse_args(argv)
     try:
         if args.cmd == "index":
             return cmd_index(args)
+        if args.cmd == "ingest":
+            return cmd_ingest(args)
+        if args.cmd == "fastmap":
+            return cmd_fastmap(args)
         return cmd_align(args)
     except (FileNotFoundError, IsADirectoryError, PermissionError,
             ValueError, EOFError, NotImplementedError) as e:
@@ -188,6 +220,88 @@ def cmd_index(args) -> int:
         f"{time.perf_counter() - t0:.1f}s -> {prefix}.bmt.npz",
         file=sys.stderr,
     )
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    from .index.ingest import load_reference_index
+
+    t0 = time.perf_counter()
+    idx = load_reference_index(args.ref_prefix, sa_intv=args.sa_intv,
+                               verify=not args.no_verify)
+    prefix = args.prefix or args.ref_prefix
+    idx.save(prefix + ".bmt")
+    print(
+        f"[{PROG}] ingested {idx.l_pac} bp "
+        f"({len(idx.ann.names)} sequences) from {args.ref_prefix}.* in "
+        f"{time.perf_counter() - t0:.1f}s -> {prefix}.bmt.npz",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _no_cuda_exit(device: str) -> None:
+    import torch
+
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        sys.exit(f"[{PROG}] error: --device {device}: no CUDA device is "
+                 "available (pass --device cpu to run the device stages on "
+                 "the CPU)")
+
+
+def cmd_fastmap(args) -> int:
+    """The SMEMs of each read (the reference's main_fastmap,
+    src/fastmap.c:559-633): 'SQ name len', then one 'EM qb qe n_occ
+    pos...' line per SMEM, then '//'. Seeding runs on --device, 512 reads
+    a batch."""
+    from .index.format import FMIndex
+    from .io.fastx import read_fastx
+    from .pipeline.aligner import MemAligner
+    from .pipeline.options import MemOptions
+    from .utils.dna import decode
+
+    _no_cuda_exit(args.device)
+    idx = FMIndex.load(args.index_prefix + ".bmt")
+    opt = MemOptions()
+    opt.min_seed_len = args.min_seed_len
+    # fastmap iterates pure round-1 SMEMs (smem_next -> bwt_smem1,
+    # min_intv=1): no split re-seed or LAST-like rounds
+    opt.full_reseed = False
+    al = MemAligner(opt, idx, device=args.device)
+    lp = idx.l_pac
+
+    def flush(batch):
+        for rec, sl in zip(batch, al.seed_batch([r.seq for r in batch])):
+            sq_seq = f"\t{decode(rec.seq)}" if args.print_seq else ""
+            print(f"SQ\t{rec.name}\t{len(rec.seq)}{sq_seq}")
+            by_span: dict = {}
+            for qb, qe, rb, occ in sl:
+                by_span.setdefault((qb, qe, occ), []).append(rb)
+            for (qb, qe, occ), rbs in by_span.items():
+                # vanilla prints coordinates only when the interval fits
+                # under -w, else a bare '*' (src/fastmap.c:612-623)
+                if occ > args.max_occ_out:
+                    print(f"EM\t{qb}\t{qe}\t{occ}\t*")
+                    continue
+                locs = []
+                for rb in rbs[: args.max_occ_out]:
+                    fwd = rb < lp
+                    pos = rb if fwd else 2 * lp - 1 - rb - (qe - qb) + 1
+                    rid = idx.ann.pos_to_rid(pos)
+                    locs.append(f"{idx.ann.names[rid]}:"
+                                f"{'+-'[not fwd]}"
+                                f"{pos - idx.ann.offsets[rid] + 1}")
+                print(f"EM\t{qb}\t{qe}\t{occ}\t" + "\t".join(locs))
+            print("//")
+
+    batch: list = []
+    for rec in read_fastx(args.reads):
+        batch.append(rec)
+        if len(batch) >= 512:
+            flush(batch)
+            batch = []
+    if batch:
+        flush(batch)
     return 0
 
 
@@ -341,10 +455,6 @@ def cmd_align(args) -> int:
         raise NotImplementedError(
             "--n-chips/--n-hosts other than 1 are not ported yet (ROADMAP "
             "queue A: multi-GPU/multi-host)")
-    if args.seed_type != 1 or args.re_seed:
-        raise NotImplementedError(
-            "-u 2/3/4 and -g are not ported yet (ROADMAP queue A: seeding "
-            "variants)")
 
     from .index.format import FMIndex
     from .io.fastx import read_fastx
@@ -365,12 +475,7 @@ def cmd_align(args) -> int:
 
     host_pool = HostPool(opt, idx, args.n_threads)
     try:
-        import torch
-
-        if args.device.startswith("cuda") and not torch.cuda.is_available():
-            sys.exit(f"[{PROG}] error: --device {args.device}: no CUDA "
-                     "device is available (pass --device cpu to run the "
-                     "device stages on the CPU)")
+        _no_cuda_exit(args.device)
         seed_cfg = SeedConfig(min_seed_len=opt.min_seed_len,
                               max_occ=opt.max_occ, reseed=opt.full_reseed,
                               split_factor=opt.split_factor,

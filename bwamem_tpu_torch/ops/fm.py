@@ -1,6 +1,6 @@
 """Batched FM-index primitives on torch tensors: bi-interval extension
-(one and two bases) and SA lookup — the subset of bwamem_tpu/ops/fm.py the
-SMEM seeding path reaches.
+(one and two bases), SA lookup and the k-mer interval table — the subset
+of bwamem_tpu/ops/fm.py the seeding paths reach.
 
 Word arithmetic: the tables hold uint32 words stored as int32. Torch has
 no popcount and only partial uint32 support, so every packed word is
@@ -9,6 +9,8 @@ and bits are counted with a SWAR popcount. Row/position dtype follows the
 JAX twin: int32 on narrow indexes, int64 when `fm.wide`.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -133,6 +135,39 @@ def forward_ext4_batch(fm: DeviceFMIndex, k, l, s):
     suffix = cnt.flip(1).cumsum(1).flip(1).to(dt) - cnt
     bl4 = k[:, None] + cnt_sent[:, None] + suffix
     return bl4.flip(1), bk4.flip(1), cnt.flip(1)
+
+
+def kmer_intv_table(fm: DeviceFMIndex, K: int = 8):
+    """(4^K, 3) table of bi-intervals (k, l, s) for every K-mer; code =
+    c_0*4^(K-1) + ... + c_{K-1} with c_0 the leftmost base. Built in K-1
+    batched forward-extension rounds, so every entry is bit-identical to
+    stepping the walk base by base (port of
+    bwamem_tpu/ops/fm.py:kmer_intv_table). Used by the fixed-length seed
+    modes (-u 2/4), whose walks emit nothing in their first K steps."""
+    dt = idx_dt(fm)
+    L2 = _L2(fm)
+    k = L2[:4] + 1
+    l = L2[[3, 2, 1, 0]] + 1
+    s = L2[1:5] - L2[:4]
+    for _ in range(K - 1):
+        k4, l4, s4 = forward_ext4_batch(fm, k, l, s)
+        k, l, s = k4.reshape(-1), l4.reshape(-1), s4.reshape(-1)
+    return torch.stack([k, l, s], dim=1).to(dt)
+
+
+# (id(fm.occ_blocks), K) -> (weak reference to that tensor, table)
+_KMER_TABLES: dict = {}
+
+
+def get_kmer_table(fm: DeviceFMIndex, K: int = 8):
+    """kmer_intv_table, cached per device index for the process's life (a
+    dead index's entry is replaced, never returned)."""
+    key = (id(fm.occ_blocks), K)
+    hit = _KMER_TABLES.get(key)
+    if hit is None or hit[0]() is not fm.occ_blocks:
+        hit = _KMER_TABLES[key] = (weakref.ref(fm.occ_blocks),
+                                   kmer_intv_table(fm, K))
+    return hit[1]
 
 
 def _nib_masks(r):

@@ -1,21 +1,27 @@
-"""Batched SMEM seeding on torch tensors (smem mode, with and without
-vanilla bwa's re-seed rounds 2 and 3).
+"""Batched seeding on torch tensors: SMEMs (with and without vanilla bwa's
+re-seed rounds 2 and 3), all MEMs (-g), forward-only MEMs (-u 3) and
+fixed-length seeds (-u 2/4).
 
-Port of bwamem_tpu/ops/seeding.py:smem_seed_batch. Same stages, same
-output order:
+Port of bwamem_tpu/ops/seeding.py:smem_seed_batch and bowtie_seed_batch.
+Same stages, same output order:
 
   round 1, forward: one pass over read positions (two per trip on occ2
     indexes); a candidate (segment start, end, interval before the step)
-    is emitted whenever the interval size changes. On occ2 indexes the
-    round-3 LAST-like automaton rides the same trips.
+    is emitted whenever the interval size changes (mode "fwdmem": only
+    when the walk dies, one base per trip on every index). On occ2
+    indexes the round-3 LAST-like automaton rides the same trips.
   compaction: emitted candidates in (read, end) order.
-  round 1, backward: every candidate extended maximally to the left.
-  containment filter: a candidate is an SMEM iff its qbeg is strictly
-    below every later-ending candidate's qbeg within the same read.
-  round 2: split re-seed of long low-occurrence SMEMs from their midpoint
-    (forward walks with a floor, then the same backward walk).
+  round 1, backward: every candidate extended maximally to the left
+    (not in mode "fwdmem").
+  filter: mode "smem" keeps a candidate iff its qbeg is strictly below
+    every later-ending candidate's qbeg within the same read; mode "mem"
+    drops only adjacent duplicates; mode "fwdmem" keeps every segment of
+    at least min_seed_len.
+  round 2 (mode "smem" only): split re-seed of long low-occurrence SMEMs
+    from their midpoint (forward walks with a floor, then the same
+    backward walk).
   merge: the three rounds' survivors sorted stably by (read, qbeg, qend).
-  occurrence expansion: per-SMEM subsampling (max_occ), then SA lookups.
+  occurrence expansion: per-seed subsampling (max_occ), then SA lookups.
 
 Torch has dynamic shapes, so every compaction is exact (nonzero on the
 emission mask, which keeps order). The JAX package's fixed pools, their
@@ -42,7 +48,10 @@ _EXIT_CHECK = 4
 class SeedConfig:
     min_seed_len: int = 19
     max_occ: int = 500     # subsample SMEMs above this occurrence count
-    # vanilla bwa's 2nd/3rd seeding rounds (bwa_index/bwamem.c:114-162)
+    mode: str = "smem"     # "smem" | "mem" (-g: keep nested MEMs) |
+    #                        "fwdmem" (-u 3: forward-only MEMs)
+    # vanilla bwa's 2nd/3rd seeding rounds (bwa_index/bwamem.c:114-162),
+    # run in mode "smem" only
     reseed: bool = False
     split_factor: float = 1.5
     split_width: int = 10
@@ -65,10 +74,16 @@ def _init1(fm, b):
     return ik, il, is_
 
 
-def _forward_pass(fm, reads, lens, min_seed_len):
-    """Round-1 forward pass, one base per trip (indexes without occ2).
-    reads: (B, L) int32 codes (pad/amb = 4). Returns (start, k, s, emit),
-    each (B, L+1), the candidate of column i ending at i."""
+def _forward_pass(fm, reads, lens, min_seed_len, emit_mode="shrink"):
+    """Round-1 forward pass, one base per trip (indexes without occ2, and
+    mode "fwdmem" on every index). reads: (B, L) int32 codes (pad/amb =
+    4). Returns (start, k, s, emit), each (B, L+1), the candidate of
+    column i ending at i.
+
+    emit_mode "shrink": emit on every interval-size change (candidates
+    for the backward pass). "segment": emit only when the walk dies
+    (forward-only MEMs, one maximal segment per restart; reference
+    src/bwt.c:719-769 bwt_fwd_mem)."""
     B, L = reads.shape
     dev = reads.device
     dt = fmops.idx_dt(fm)
@@ -87,7 +102,10 @@ def _forward_pass(fm, reads, lens, min_seed_len):
         bc = base.clamp(0, 3)
         okk, okl = fmops._sel(k4, bc), fmops._sel(l4, bc)
         oks = torch.where(valid, fmops._sel(s4, bc), 0)
-        emit = active & (oks != s) & (i >= min_seed_len)
+        if emit_mode == "segment":
+            emit = active & (oks == 0) & (i - seg >= min_seed_len)
+        else:
+            emit = active & (oks != s) & (i >= min_seed_len)
         cands.append((seg, k, s, emit))
         ext = valid & active & (oks > 0)
         restart = valid & ~ext
@@ -247,7 +265,8 @@ def _forward_pass2(fm, reads, lens, min_seed_len, strategy=None):
     return planes + (r3,)
 
 
-def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None):
+def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None,
+                   text_walk=False):
     """Extend each candidate maximally to the left (the FM walk, k-side
     interval only). Flat (P,) lanes in (group, end) order.
 
@@ -257,7 +276,14 @@ def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None):
 
     Early kill: when a lane reaches the same (qb, k, s) as the next lane
     of its group, it is contained and stops walking — the containment
-    filter drops it either way; this only saves trips."""
+    filter drops it either way. Mode "mem" keeps such a lane where it
+    stopped, so the kill is part of its output, as in the JAX package.
+    text_walk: lanes at s == 1 are never killed and walk on to their true
+    left end, which is where the JAX package's text walk (on for read
+    buckets of 384 bp or more) takes them. (The JAX package kills in
+    compacted lane sets past 4096 lanes, where a lane's neighbour can
+    differ from the port's; mode "mem" can then keep a nested MEM at
+    another qbeg.)"""
     B, L = reads.shape
     P = qbeg.shape[0]
     reads_flat = reads.reshape(-1)
@@ -287,6 +313,8 @@ def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None):
         kk = torch.where(ok, nk, kk)
         ss = torch.where(ok, ns, ss)
         same = same_grp & (nxt(qb) == qb) & (nxt(ss) == ss) & (nxt(kk) == kk)
+        if text_walk:
+            same &= ss != 1
         done = ~ok | same
     return qb, kk, ss
 
@@ -315,6 +343,19 @@ def _segmented_suffix_min(v, seg):
 def _containment_filter(qbeg, qend, grp, min_seed_len):
     keep = qbeg.to(torch.int64) < _segmented_suffix_min(qbeg, grp)
     return keep & ((qend - qbeg) >= min_seed_len)
+
+
+def _dup_filter(qbeg, qend, rid, s, min_seed_len):
+    """Mode "mem" (-g): keep nested MEMs; drop only a candidate whose next
+    one has the same (read, qbeg) and the same interval size (reference:
+    filter_seed_intervals_gpu_mem, seed_gen.cu:783-812). Candidates are in
+    (read, end) order."""
+    P = qbeg.shape[0]
+    dup = torch.zeros(P, dtype=torch.bool, device=qbeg.device)
+    if P > 1:
+        dup[:-1] = ((rid[1:] == rid[:-1]) & (qbeg[1:] == qbeg[:-1])
+                    & (s[1:] == s[:-1]))
+    return ~dup & ((qend - qbeg) >= min_seed_len)
 
 
 def _reseed_forward(fm, reads, lens, lrid, lx, lfloor, min_seed_len: int):
@@ -428,20 +469,26 @@ def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
 
 def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
                     cfg: SeedConfig = SeedConfig()):
-    """End-to-end batched SMEM seeding.
+    """End-to-end batched seeding in cfg.mode.
 
     reads: (B, L) int codes (amb/pad = 4); lens: (B,) int. Returns flat
-    seed arrays sorted by (read, qend, SA rank) — or, with cfg.reseed, by
-    (read, qbeg, qend, SA rank): read_id, qbeg, qend, rbeg (doubled
-    coordinates), n_occ."""
+    seed arrays sorted by (read, qend, SA rank) — or, with the re-seed
+    rounds (cfg.reseed in mode "smem"), by (read, qbeg, qend, SA rank):
+    read_id, qbeg, qend, rbeg (doubled coordinates), n_occ."""
+    if cfg.mode not in ("smem", "mem", "fwdmem"):
+        raise ValueError(f"unknown seeding mode {cfg.mode!r}")
     reads = reads.to(torch.int32)
     lens = lens.to(torch.int32)
     B, L = reads.shape
     dev = reads.device
     dt = fmops.idx_dt(fm)
-    fuse_r3 = cfg.reseed and cfg.max_mem_intv > 0 and fm.has_occ2
+    reseed = cfg.reseed and cfg.mode == "smem"
+    fuse_r3 = reseed and cfg.max_mem_intv > 0 and fm.has_occ2
     r3_planes = None
-    if fm.has_occ2:
+    if cfg.mode == "fwdmem":
+        start, k, s, emit = _forward_pass(fm, reads, lens, cfg.min_seed_len,
+                                          emit_mode="segment")
+    elif fm.has_occ2:
         out = _forward_pass2(
             fm, reads, lens, cfg.min_seed_len,
             strategy=((cfg.min_seed_len, cfg.max_mem_intv)
@@ -455,9 +502,20 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     end = torch.arange(NP, dtype=torch.int32, device=dev).expand(B, NP)
     idx, (start, end, k, s) = _compact(emit, start, end, k, s)
     rid = (idx // NP).to(torch.int32)
-    qbeg, k, s = _backward_pass(fm, reads, rid, start, k, s)
-    keep = _containment_filter(qbeg, end, rid, cfg.min_seed_len)
-    if cfg.reseed:
+    if cfg.mode == "fwdmem":
+        # forward-only MEMs: no left extension, the segments are disjoint
+        qbeg = start
+        keep = end - qbeg >= cfg.min_seed_len
+    else:
+        # the text walk changes no SMEM (killed lanes are dropped either
+        # way), so only mode "mem" needs it
+        qbeg, k, s = _backward_pass(fm, reads, rid, start, k, s,
+                                    text_walk=cfg.mode == "mem" and L >= 384)
+        if cfg.mode == "mem":
+            keep = _dup_filter(qbeg, end, rid, s, cfg.min_seed_len)
+        else:
+            keep = _containment_filter(qbeg, end, rid, cfg.min_seed_len)
+    if reseed:
         # ---- round 2: split re-seed of long low-occ SMEMs ----
         split_len = int(cfg.min_seed_len * cfg.split_factor + 0.499)
         qualify = keep & (end - qbeg >= split_len) & (s <= cfg.split_width)
@@ -506,3 +564,98 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         rid, qbeg, end, k, s = (a[perm] for a in (rid, qbeg, end, k, s))
         keep = torch.ones_like(rid, dtype=torch.bool)
     return _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
+
+
+def bowtie_seed_batch(fm: DeviceFMIndex, reads, lens, seed_len: int,
+                      stride: int, inexact: bool, max_occ: int = 500,
+                      ktab=None, ktab_k: int = 0):
+    """Fixed-length exact (or <= 1-mismatch) seeds at a start stride: the
+    -u 2 / -u 4 seed types (port of bwamem_tpu/ops/seeding.py:
+    bowtie_seed_batch; reference src/bwt.c:593-718 bwt_bowtie_seed and
+    bwt_bowtie_seed_inexact).
+
+    Every (mismatch position, base) branch is one lane of the (start,
+    candidate) plane: C = 3 * seed_len + 1 candidates a start (the last
+    one exact), or 1 for exact seeds. A start's winner is its live
+    candidate of highest priority: exact first, else the latest mismatch
+    position, then the highest alternate base (the reference's LIFO
+    stack). Only live lanes are extended at each step; a dead lane's
+    interval is never read again. With a k-mer table (ktab, ktab_k, from
+    fm.get_kmer_table) the first ktab_k steps are one table-row gather:
+    fixed-length seeds emit nothing before their last base. Returns flat
+    seed arrays sorted by (read, qbeg, SA rank), as smem_seed_batch."""
+    reads = reads.to(torch.int32)
+    lens = lens.to(torch.int32)
+    B, L = reads.shape
+    dev = reads.device
+    dt = fmops.idx_dt(fm)
+    S = max((L - seed_len) // stride + 1, 1)
+    NL = B * S
+    rid = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(S)
+    x0 = (torch.arange(S, dtype=torch.int32, device=dev) * stride).repeat(B)
+    lane_ok = x0 + seed_len <= lens[rid.long()]
+    if inexact:
+        tj = torch.arange(seed_len * 3, dtype=torch.int32, device=dev)
+        ct = torch.cat([tj // 3, torch.full((1,), -1, dtype=torch.int32,
+                                            device=dev)])
+        cj = torch.cat([tj % 3, torch.zeros(1, dtype=torch.int32,
+                                            device=dev)])
+    else:  # exact only
+        ct = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        cj = torch.zeros(1, dtype=torch.int32, device=dev)
+    C = ct.shape[0]
+    reads_flat = reads.reshape(-1)
+    base0 = rid.long() * L + x0.long()
+
+    def chosen(lane, cand, t):
+        """Base of candidate `cand` of start `lane` at offset t (flat
+        index vectors): the read base, or at the candidate's own mismatch
+        offset the cj-th base other than the read base. Returns (read
+        base, chosen base)."""
+        rb = reads_flat[(base0[lane] + t).clamp(0, B * L - 1)]
+        c = cj[cand]
+        alt = c + (c >= rb).to(torch.int32)
+        return rb, torch.where(ct[cand] == t, alt, rb)
+
+    lane = torch.arange(NL, device=dev).repeat_interleave(C)
+    cand = torch.arange(C, device=dev).repeat(NL)
+    L2c = fmops._L2(fm)
+    if ktab is not None and 1 < ktab_k < seed_len:
+        code = torch.zeros(NL * C, dtype=torch.int64, device=dev)
+        ok = lane_ok[lane]
+        for t in range(ktab_k):
+            rb, ch = chosen(lane, cand, t)
+            ok &= rb < 4
+            code = code * 4 + ch.clamp(0, 3)
+        row = ktab[code]
+        k, l, s = row[:, 0].to(dt), row[:, 1].to(dt), row[:, 2].to(dt)
+        alive = ok & (s >= 1)
+        t_start = ktab_k
+    else:
+        rb, ch = chosen(lane, cand, 0)
+        chl = ch.clamp(0, 3).long()
+        k = L2c[chl] + 1
+        l = L2c[3 - chl] + 1
+        s = L2c[chl + 1] - L2c[chl]
+        alive = lane_ok[lane] & (rb < 4) & (s >= 1)
+        t_start = 1
+    for t in range(t_start, seed_len):
+        idx = alive.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        rb, ch = chosen(lane[idx], cand[idx], t)
+        k4, l4, s4 = fmops.forward_ext4_batch(fm, k[idx], l[idx], s[idx])
+        chc = ch.clamp(0, 3)
+        sn = fmops._sel(s4, chc)
+        live = (rb < 4) & (sn >= 1)
+        k[idx] = torch.where(live, fmops._sel(k4, chc), k[idx])
+        l[idx] = torch.where(live, fmops._sel(l4, chc), l[idx])
+        s[idx] = torch.where(live, sn, s[idx])
+        alive[idx] = live
+    big = torch.full_like(ct, BIG)
+    prio = torch.where(ct < 0, big, ct * 4 + cj)[cand]
+    prio = torch.where(alive, prio, -1).reshape(NL, C)
+    best_p, best = prio.max(dim=1)
+    pick = torch.arange(NL, device=dev) * C + best
+    return _expand_occurrences(fm, rid, x0, x0 + seed_len, k[pick], s[pick],
+                               best_p >= 0, max_occ)

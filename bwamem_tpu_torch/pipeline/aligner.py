@@ -2,7 +2,9 @@
 
 Port of the native path of bwamem_tpu/pipeline/aligner.py:MemAligner:
 
-  device:  batched SMEM seeding over the whole read batch (ops/seeding)
+  device:  batched seeding over the whole read batch (ops/seeding): SMEMs
+           by default, all MEMs with -g, forward-only MEMs with -u 3,
+           fixed-length seeds with -u 2/4
   host:    native chaining, the per-seed filter (-F SHD, or the SW filter
            for reads of 500 bp or more: one device launch per chunk,
            pipeline/seedflt.py), chain->extension-job construction (C++)
@@ -26,7 +28,7 @@ threads on one aligner.
 from __future__ import annotations
 
 from contextlib import nullcontext
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -35,7 +37,8 @@ from ..index.device import DeviceFMIndex
 from ..index.format import FMIndex
 from ..ops.extend import (ExtendParams, end_choice, extend_batch_auto,
                           extend_choose_desc)
-from ..ops.seeding import SeedConfig, smem_seed_batch
+from ..ops import fm as fmops
+from ..ops.seeding import SeedConfig, bowtie_seed_batch, smem_seed_batch
 from ..utils.shapes import bucket_len, bucket_read_len
 from .chain import Chain
 from .options import FILTER_COEF, MEM_F_NO_RESCUE, MemOptions, cal_max_gap
@@ -278,9 +281,9 @@ def _dump_regs(per_read_regs, stage: str) -> None:
 
 class MemAligner:
     """Index in device memory, batched device stages, host post-processing.
-    Single- and paired-end reads of any length, default seeding (SMEM +
-    re-seed rounds), the per-seed filters, the native host core or the
-    per-seed-object path."""
+    Single- and paired-end reads of any length, every seeding mode (SMEM +
+    re-seed rounds, -g, -u 2/3/4), the per-seed filters, the native host
+    core or the per-seed-object path."""
 
     def __init__(self, opt: MemOptions, idx: FMIndex,
                  fm: DeviceFMIndex | None = None,
@@ -299,6 +302,10 @@ class MemAligner:
             min_seed_len=opt.min_seed_len, max_occ=opt.max_occ,
             reseed=opt.full_reseed, split_factor=opt.split_factor,
             split_width=opt.split_width, max_mem_intv=opt.max_mem_intv)
+        # -u 3 and -g pick the seeding mode, whatever the config says
+        self.seed_cfg = replace(
+            self.seed_cfg, mode=("fwdmem" if opt.seed_type == 3
+                                 else "mem" if opt.re_seed else "smem"))
         self.ext_params = ExtendParams(
             o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
             e_ins=opt.e_ins, w=opt.w, zdrop=opt.zdrop,
@@ -308,17 +315,6 @@ class MemAligner:
     def _span(self, label: str):
         return (self.timings.span(label) if self.timings is not None
                 else nullcontext())
-
-    def _check_supported(self) -> None:
-        opt = self.opt
-        todo = []
-        if opt.seed_type != 1:
-            todo.append(f"-u {opt.seed_type} (ROADMAP queue A: seeding "
-                        "variants)")
-        if opt.re_seed:
-            todo.append("-g (ROADMAP queue A: seeding variants)")
-        if todo:
-            raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
     def seed_batch_arrays(self, seqs: list[np.ndarray]) -> dict:
         """Device seeding; returns flat seed arrays (qbeg/qend/rbeg/n_occ)
@@ -331,16 +327,38 @@ class MemAligner:
             reads[i, : len(s)] = s
             lens[i] = len(s)
         reads_t = torch.from_numpy(reads).to(self.device)
+        lens_t = torch.from_numpy(lens).to(self.device)
+        opt = self.opt
         with self._span("seed_device"):
-            out = smem_seed_batch(self.fm, reads_t,
-                                  torch.from_numpy(lens).to(self.device),
-                                  self.seed_cfg)
+            if opt.seed_type in (2, 4):
+                ktab_k = 8 if opt.min_seed_len > 8 else 0
+                out = bowtie_seed_batch(
+                    self.fm, reads_t, lens_t, seed_len=opt.min_seed_len,
+                    stride=opt.seed_intv or opt.min_seed_len,
+                    inexact=opt.seed_type == 4, max_occ=self.seed_cfg.max_occ,
+                    ktab=(fmops.get_kmer_table(self.fm, ktab_k)
+                          if ktab_k else None), ktab_k=ktab_k)
+            else:
+                out = smem_seed_batch(self.fm, reads_t, lens_t,
+                                      self.seed_cfg)
             host = {k: v.cpu().numpy() for k, v in out.items()}
         self.stats["n_seeds"] += len(host["rbeg"])
         bounds = np.searchsorted(host["read_id"], np.arange(B + 1))
         return dict(qbeg=host["qbeg"], qend=host["qend"], rbeg=host["rbeg"],
                     n_occ=host["n_occ"], bounds=bounds.astype(np.int64),
                     reads_dev=(B, L, reads_t))
+
+    def seed_batch(self, seqs: list[np.ndarray]) -> list[list[tuple]]:
+        """Tuple-list view of seed_batch_arrays, one list of (qbeg, qend,
+        rbeg, n_occ) per read (fastmap, tests)."""
+        arr = self.seed_batch_arrays(seqs)
+        cols = np.stack([arr["qbeg"], arr["qend"], arr["rbeg"],
+                         arr["n_occ"]], axis=1)
+        b = arr["bounds"]
+        return [
+            [tuple(int(x) for x in row) for row in cols[b[i]:b[i + 1]]]
+            for i in range(len(seqs))
+        ]
 
     def _collect_native(self, seqs, seeds):
         """Native chaining AND chain2aln job construction (flat arrays, no
@@ -534,7 +552,6 @@ class MemAligner:
         """Device seeding + native chaining + ONE device extension + L/R
         merge + dedup/patch, before primary marking: a RegArrays. With -W
         or -v >= 4, the per-seed-object path: a list of AlnReg lists."""
-        self._check_supported()
         with self._span("seed_total"):
             seed_arr = self.seed_batch_arrays(seqs)
         if self.opt.min_chain_weight > 0 or self.opt.verbose >= 4:

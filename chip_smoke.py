@@ -4,8 +4,9 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the three kernels from csrc/ with nvcc, in parallel: K1 (dense
-     extension), K2 (local SW) and K3 (banded extension);
+  1. build the four kernels from csrc/ with nvcc, in parallel: K1 (dense
+     extension), K2 (local SW), K3 (banded extension) and K4 (the 16-bit
+     probe);
   2. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, exact equality, median of 5 timed runs, with the bound
      (the larger of bytes over HBM bandwidth and int32 operations over the
@@ -21,7 +22,11 @@ Phases (each prints its own lines; any failure exits nonzero):
      filter's 200 x 200 windows with rev_skip 0 and minsc 0, 65536 jobs
      at the default scoring and 20480 at -x pacbio's; K3 at QMAX 256,
      TMAX 384, w=100, 32768 jobs + edge lanes, zdrop 0 and 100, and at
-     QMAX 1024, TMAX 1536, w=300, 4096 jobs;
+     QMAX 1024, TMAX 1536, w=300, 4096 jobs; K4's six cases at the Pallas
+     probe's (8, 128) on its arange % 100 input and at (16384, 1024) on
+     full-range random int16, each also against its one-call PyTorch
+     library version (timed as library_ms), and at (16384, 1024) the
+     kernel's and the library call's device time from torch.profiler;
   3. build the world: a 4.6 Mbp repeat-rich simulated genome (fixed seed),
      indexed with `python -m bwamem_tpu_torch index -r 4`; 32768 SE reads
      and 16384 FR pairs (insert max(260, N(350, 50)), 1% of the pairs with
@@ -45,7 +50,15 @@ Phases (each prints its own lines; any failure exits nonzero):
      per-seed-object path: K2 for the SW filter, K1 for the extension).
      Phases 6-8 count every kernel's launches around the device run, print
      reads/s and the spans, and hold the device SAM of the first 128,
-     1024, 1024 and 64 reads byte-identical to --device cpu.
+     1024, 1024 and 64 reads byte-identical to --device cpu;
+  9. the seeding variants: -u 2, -u 3 and -g on the first 16384 reads of
+     phase 4, -u 4 on the first 4096, as phases 6-8 (K1 must launch; the
+     device SAM of the first 1024 reads, 256 for -u 4, equals the CPU's);
+ 10. `fastmap` of the same 16384 reads on the card, whose text for the
+     first 512 reads must equal --device cpu's;
+ 11. the probe, `python -m bwamem_tpu_torch.tools.int16_probe` (its main,
+     in this process, with K4's launch count reset around it): six PASS
+     lines, its verdict, exit 0.
 Then one JSON line for the kernels, the card line, and the device JSON as
 the last line.
 Needs one CUDA device; exits nonzero without one.
@@ -97,6 +110,14 @@ PACBIO = dict(a=1, b=1, o_del=1, e_del=1, o_ins=1, e_ins=1, end_bonus=0)
 PB_SHAPES = [dict(N=4096, QMAX=64, TMAX=1024, tail=1024),
              dict(N=4096, QMAX=192, TMAX=768, tail=768),
              dict(N=4096, QMAX=1024, TMAX=2048, tail=2048)]
+# K4: the Pallas probe's own block, then 16384 rows of 1024 int16 (32 MiB)
+PROBE_SHAPES = [(8, 128), (16_384, 1024)]
+PROBE_INNER = 20  # back-to-back calls per timed sample (microsecond calls)
+# phase 9: reads of phase 4 per seeding variant (-u 4's plane is 58
+# candidates a start, so it takes fewer) and the CPU heads
+VARIANT_READS = (16_384, 4096)
+VARIANT_HEADS = (1024, 256)
+FASTMAP_HEAD = 512
 
 
 def phase(name: str) -> None:
@@ -132,7 +153,9 @@ def make_jobs(rng, N, QMAX, TMAX, tail=160):
     return q, t, ql, tl, h0
 
 
-def _median_ms(fn, reps=5):
+def _median_ms(fn, reps=5, inner=1):
+    """Median over `reps` samples of the time of one call of fn; a sample
+    times `inner` calls back to back and divides."""
     import torch
 
     fn()  # warm-up
@@ -142,11 +165,30 @@ def _median_ms(fn, reps=5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def _device_ms(fn, inner=PROBE_INNER):
+    """The device time of one call of fn: the summed time of the device
+    work torch.profiler records over `inner` calls (no host time in it),
+    or None when it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 / inner if us > 0 else None
 
 
 def _bound(nbytes: int, ops: int) -> dict:
@@ -348,6 +390,93 @@ def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
             main_rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             **bound)
     return main_rec
+
+
+def probe_input(shape, seed: int = 2026):
+    """K4's input: the Pallas probe's arange % 100 at its own (8, 128),
+    else full-range random int16 with both extremes."""
+    import numpy as np
+
+    if tuple(shape) == (8, 128):
+        return (np.arange(1024, dtype=np.int16) % 100).reshape(shape)
+    x = np.random.default_rng(seed).integers(-32768, 32768, shape,
+                                             dtype=np.int16)
+    x[0, 0], x[-1, -1] = -32768, 32767
+    return x
+
+
+def probe_library_calls(x) -> dict:
+    """For each K4 case, the PyTorch call that computes the same int16
+    output (timed as library_ms; the port never calls these)."""
+    import torch
+    import torch.nn.functional as F
+
+    col = torch.arange(x.shape[1], dtype=torch.int16, device=x.device)
+    return dict(
+        compare=lambda: torch.where(x > 3, x, 0),
+        reduce=lambda: x.amax(dim=1, keepdim=True).expand_as(x).contiguous(),
+        iota=lambda: x + col,
+        shift=lambda: F.pad(x[:, :-1], (1, 0)),
+        roll=lambda: torch.roll(x, 1, 1),
+        convert=lambda: x.int().short())
+
+
+def probe_kernel_phase(device: str = "cuda", shapes=None,
+                       timed: bool = True) -> dict:
+    """K4 vs its plain version and its library call on `device`: every
+    case at every shape, exact. Bound per case: 2·R·C bytes read and as
+    many written (one packed operation a 32-bit word is far below the
+    bytes' time). The CUDA-event times of these microsecond calls
+    include the host's launch work wherever it outlasts the device's, so
+    the last shape also prints the kernel's and the library call's device
+    time from torch.profiler. Returns the last shape's record, each time
+    and the bound summed over the six cases."""
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import int16_probe as k4
+
+    rec = None
+    shapes = shapes or PROBE_SHAPES
+    for shape in shapes:
+        R, C = shape
+        x = torch.from_numpy(probe_input(shape)).to(device)
+        lib = probe_library_calls(x)
+        t0 = 0.0 if timed else None
+        rec = dict(max_abs_err=0, ms=t0, plain_ms=t0, library_ms=t0,
+                   bound_ms=0.0)
+        for name in k4.NAMES:
+            want = k4.PLAIN[name](x)
+            got = k4.run_case(name, x)
+            ref = lib[name]()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            if err != 0 or not torch.equal(ref, want):
+                raise SystemExit(f"K4 {name} {shape}: kernel or library "
+                                 f"call != plain (max abs err {err})")
+            bound = _bound(4 * R * C, R * C // 2)
+            ms = plain_ms = lib_ms = None
+            if timed:
+                ms = _median_ms(lambda: k4.run_case(name, x),
+                                inner=PROBE_INNER)
+                plain_ms = _median_ms(lambda: k4.PLAIN[name](x),
+                                      inner=PROBE_INNER)
+                lib_ms = _median_ms(lib[name], inner=PROBE_INNER)
+                for key, t in (("ms", ms), ("plain_ms", plain_ms),
+                               ("library_ms", lib_ms)):
+                    rec[key] += t
+            rec["bound_ms"] += bound["bound_ms"]
+            rec["bound_by"] = bound["bound_by"]
+            dev_ms = ""
+            if timed and shape == shapes[-1]:
+                dev_ms = (f"; device time (torch.profiler) kernel "
+                          f"{_device_ms(lambda: k4.run_case(name, x))} ms, "
+                          f"library {_device_ms(lib[name])} ms")
+            print(f"K4 int16_probe {name} {R}x{C}: exact; kernel {ms} ms, "
+                  f"plain {plain_ms} ms, library {lib_ms} ms, bound "
+                  f"{bound['bound_ms']:.6f} ms ({bound['bound_by']})"
+                  f"{dev_ms}", flush=True)
+    return rec
 
 
 def make_world(d: str, genome_len: int = GENOME_LEN, n_reads: int = N_READS,
@@ -685,15 +814,106 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
     return out
 
 
+def variant_phases(d: str, device: str = "cuda", sizes=VARIANT_READS,
+                   heads=VARIANT_HEADS) -> dict:
+    """Phase 9 on the world of phase 3: -u 2, -u 3 and -g on the first
+    sizes[0] reads of reads.fq, -u 4 on the first sizes[1], each through
+    flag_phase (K1 must launch; device SAM == CPU SAM on the head).
+    Returns each variant's launch counts and reads/s."""
+    n, n4 = sizes
+    _head(os.path.join(d, "reads.fq"), os.path.join(d, "var.fq"), n)
+    _head(os.path.join(d, "reads.fq"), os.path.join(d, "var4.fq"), n4)
+    return {tag: flag_phase(d, tag, reads, head, flags, ("K1",), device)
+            for tag, reads, head, flags in (
+                ("u2", "var.fq", heads[0], ["-u", "2"]),
+                ("u3", "var.fq", heads[0], ["-u", "3"]),
+                ("g", "var.fq", heads[0], ["-g"]),
+                ("u4", "var4.fq", heads[1], ["-u", "4"]))}
+
+
+def fastmap_phase(d: str, device: str = "cuda",
+                  n_head: int = FASTMAP_HEAD) -> float:
+    """Phase 10: `fastmap` of var.fq (phase 9's reads) through the CLI
+    entry point on `device`, then of its first n_head reads with
+    --device cpu, whose text must equal the device run's for those reads.
+    Returns reads/s."""
+    from contextlib import redirect_stdout
+
+    from bwamem_tpu_torch.cli import main
+
+    def fastmap(dev, reads, tag):
+        out = os.path.join(d, f"fastmap_{tag}.txt")
+        with open(out, "w") as f, redirect_stdout(f):
+            rc = main(["fastmap", "--device", dev, os.path.join(d, "idx"),
+                       reads])
+        if rc != 0:
+            raise SystemExit(f"fastmap on {dev} failed")
+        with open(out) as f:
+            return f.read().split("//\n")[:-1]  # one block per read
+
+    t0 = time.perf_counter()
+    got = fastmap(device, os.path.join(d, "var.fq"), "main")
+    wall = time.perf_counter() - t0
+    n_em = sum(b.count("\nEM\t") for b in got)
+    print(f"fastmap --device {device}: {len(got)} reads in {wall:.2f} s "
+          f"wall (index load + setup included) = {len(got) / wall:.1f} "
+          f"reads/s; {n_em} EM lines", flush=True)
+    if n_em < len(got):
+        raise SystemExit(f"fastmap: only {n_em} SMEMs for {len(got)} reads")
+    head = os.path.join(d, "fastmap_head.fq")
+    _head(os.path.join(d, "var.fq"), head, n_head)
+    t0 = time.perf_counter()
+    want = fastmap("cpu", head, "cpu")
+    if got[:n_head] != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise SystemExit(f"fastmap: {device} and CPU differ at read {bad}:"
+                         f"\n{got[bad:bad + 1]}\n{want[bad:bad + 1]}")
+    print(f"fastmap: first {len(want)} reads: {device} text == CPU text "
+          f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
+    return len(got) / wall
+
+
+def probe_phase(device: str = "cuda") -> int:
+    """Phase 11: the probe's entry point (`python -m
+    bwamem_tpu_torch.tools.int16_probe`, its main in this process) with
+    K4's launch count reset just before and read just after. It must
+    print six PASS lines and its verdict and return 0. Returns the
+    launches."""
+    import io
+    from contextlib import redirect_stdout
+
+    from bwamem_tpu_torch.ops.kernels import int16_probe
+    from bwamem_tpu_torch.tools.int16_probe import main as probe_main
+
+    buf = io.StringIO()
+    int16_probe.LAUNCHES = 0
+    with redirect_stdout(buf):
+        rc = probe_main(["--device", device])
+    launches = int16_probe.LAUNCHES
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print("  " + ln, flush=True)
+    n_pass = sum(ln.startswith("PASS ") for ln in lines)
+    print(f"probe --device {device}: exit {rc}, {n_pass} PASS, K4 launches "
+          f"{launches}", flush=True)
+    if rc != 0 or n_pass != 6 or not lines[-1].startswith("VERDICT: "):
+        raise SystemExit("the probe did not pass")
+    if device == "cuda" and launches != len(int16_probe.NAMES):
+        raise SystemExit(f"the probe launched K4 {launches} times, not 6")
+    return launches
+
+
 def build_kernels():
-    """Build K1, K2 and K3 at once (one nvcc each) and print each build's
-    register and spill report."""
+    """Build K1, K2, K3 and K4 at once (one nvcc each) and print each
+    build's register and spill report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
-                                              swalign_kernel)
+                                              int16_probe, swalign_kernel)
 
-    mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded}
+    mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded,
+            "K4": int16_probe}
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = {k: ex.submit(m.build) for k, m in mods.items()}
         secs = {k: f.result() for k, f in futs.items()}
@@ -736,6 +956,7 @@ def main() -> int:
              for sh in PB_SHAPES]
     k3 = kernel_phase("cuda", K3_SHAPES, kernel="K3", variants=K3_VARIANTS)
     kernel_phase("cuda", K3_WIDE_SHAPES, kernel="K3", variants=[(300, 0)])
+    k4 = probe_kernel_phase("cuda")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         phase("3 world")
@@ -757,6 +978,15 @@ def main() -> int:
         _, sw_launches, _ = pe_align_phase(d)
 
         runs = long_read_phases(d, contigs)
+
+        phase("9 seeding variants (-u 2, -u 3, -g, -u 4)")
+        variant_phases(d)
+
+        phase("10 fastmap")
+        fastmap_phase(d)
+
+    phase("11 the 16-bit probe")
+    probe_launches = probe_phase()
 
     print(json.dumps({"kernels": [
         dict(name="extend_dense", route="cuda", library_ms=None,
@@ -782,7 +1012,11 @@ def main() -> int:
         dict(name="extend_banded", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_banded.cu",
              replaces="bwamem_tpu/ops/pallas/extend_banded.py:241",
-             launches=runs["vanilla"]["K3"], **k3)]}), flush=True)
+             launches=runs["vanilla"]["K3"], **k3),
+        dict(name="int16_probe", route="cuda",
+             source="bwamem_tpu_torch/csrc/int16_probe.cu",
+             replaces="tools/mosaic_probe.py:29",
+             launches=probe_launches, **k4)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,19 +93,10 @@ def test_cli_matches_jax_aligner(fixture2, jax_sam, threads):
 
 
 def test_unported_inputs_raise(fixture2):
-    from bwamem_tpu_torch.index.format import FMIndex
-    from bwamem_tpu_torch.pipeline.aligner import MemAligner
-    from bwamem_tpu_torch.pipeline.options import MemOptions
-
+    """Multi-device runs are the one align input left unported."""
     d, env = fixture2
-    idx = FMIndex.load(str(d / "idx.bmt"))
-    seq = np.zeros(150, np.uint8)
-    for field, value in (("seed_type", 2), ("re_seed", True)):
-        opt = MemOptions()
-        setattr(opt, field, value)
-        with pytest.raises(NotImplementedError):
-            MemAligner(opt, idx, device="cpu").align_batch(["r"], [seq])
-    for flags in (["--n-chips", "2"], ["-u", "2"], ["-g"]):
+    for flags in (["--n-chips", "2"],
+                  ["--n-hosts", "2", "--host-id", "0"]):
         res = subprocess.run(
             [sys.executable, "-m", "bwamem_tpu_torch", "align", "--device",
              "cpu", *flags, str(d / "idx"), str(d / "r.fq"), str(d / "r.fq")],

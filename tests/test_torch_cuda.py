@@ -10,8 +10,12 @@ banded shapes to it and the rest to K1. K2 (local SW): exact against its
 plain version at the rescue path's widths and three others (TMAX 3072:
 exactly 48 KB of row maxima per block), with and without rev_skip, and at
 the seed filter's 200 x 200 windows (minsc 0, rev_skip 0) at the default
-and -x pacbio scoring, one launch per call, the wrapper's input checks. Every
-test needs an NVIDIA GPU (marker `cuda`) and skips without one.
+and -x pacbio scoring, one launch per call, the wrapper's input checks. K4
+(the 16-bit probe): every case exact against its plain version at the
+probe's (8, 128), at (3, 34) and at (16384, 1024) on full-range int16, one
+launch per call, and the wrapper refuses odd column counts, other dtypes
+and misaligned data. Every test needs an NVIDIA GPU (marker `cuda`) and
+skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without them:
@@ -30,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from bwamem_tpu_torch.ops import extend  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import extend_banded  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import extend_kernel  # noqa: E402
+from bwamem_tpu_torch.ops.kernels import int16_probe  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import swalign_kernel  # noqa: E402
 from chip_smoke import PACBIO, make_filter_jobs  # noqa: E402
 from chip_smoke import make_jobs, make_sw_jobs  # noqa: E402
@@ -233,3 +238,33 @@ def test_sw_wrapper_checks_inputs():
     before = swalign_kernel.LAUNCHES
     out = swalign_kernel.sw_align_batch(*empty, *gaps)
     assert out.shape == (6, 0) and swalign_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 34), (16384, 1024)])
+@pytest.mark.parametrize("name", int16_probe.NAMES)
+def test_int16_probe_matches_plain(name, shape):
+    rng = np.random.default_rng(shape[0] + shape[1])
+    if shape == (8, 128):  # the probe's own input
+        x = (np.arange(1024, dtype=np.int16) % 100).reshape(shape)
+    else:
+        x = rng.integers(-32768, 32768, shape, dtype=np.int16)
+        x[0, 0], x[-1, -1] = -32768, 32767
+    xc = torch.from_numpy(x).cuda()
+    before = int16_probe.LAUNCHES
+    got = int16_probe.run_case(name, xc)
+    torch.cuda.synchronize()
+    assert int16_probe.LAUNCHES == before + 1
+    want = int16_probe.PLAIN[name](xc)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), int16_probe.PLAIN[name](xc.cpu()))
+
+
+def test_int16_probe_wrapper_checks_inputs():
+    before = int16_probe.LAUNCHES
+    for bad in (torch.zeros((4, 33), dtype=torch.int16, device="cuda"),
+                torch.zeros((4, 34), dtype=torch.int32, device="cuda"),
+                torch.zeros(4 * 34 + 1, dtype=torch.int16,
+                            device="cuda")[1:].view(4, 34)):
+        with pytest.raises(ValueError):
+            int16_probe.run_case("roll", bad)
+    assert int16_probe.LAUNCHES == before

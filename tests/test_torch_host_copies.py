@@ -12,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIED = [
     "index/format.py", "index/build.py", "index/suffix_array.py",
-    "io/fastx.py", "native/loader.py", "native/samfmt_opts.py",
+    "index/ingest.py", "io/fastx.py", "native/loader.py", "native/samfmt_opts.py",
     "pipeline/options.py", "pipeline/chain.py", "pipeline/regions.py",
     "pipeline/samgen.py", "pipeline/regarrays.py", "pipeline/runtime.py",
     "pipeline/hostpool.py", "oracle/ksw.py", "ops/globalalign.py",

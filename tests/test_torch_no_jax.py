@@ -3,9 +3,11 @@ subprocess whose import system refuses `jax*` and `bwamem_tpu` (but not
 `bwamem_tpu_torch`), import every module of the port, build an index,
 align single-end reads with --device cpu through the CLI, align pairs
 from two files whose victims (read 2 without a seed) only mate rescue can
-place, align with -F (the SHD filter) and align 1 kb reads with -x pacbio
-(the per-seed SW filter and the per-seed-object path): those paths import
-inside functions, so only runs of them can show that none reaches jax."""
+place, align with -F (the SHD filter), 1 kb reads with -x pacbio (the
+per-seed SW filter and the per-seed-object path), with -u 2 (fixed-length
+seeds through the k-mer table) and with -g (all MEMs), run fastmap and
+the 16-bit probe: those paths import inside functions, so only runs of
+them can show that none reaches jax."""
 import subprocess
 import sys
 import textwrap
@@ -54,6 +56,16 @@ SCRIPT = textwrap.dedent(r"""
         rng, contigs, 3, read_len=1000, sub=0.04, ins=0.03, dele=0.03))
     assert main(["align", "--device", "cpu", "-x", "pacbio", d + "/idx",
                  d + "/long.fq", "-o", d + "/pb.sam"]) == 0
+    for flag in ("-u 2", "-g"):
+        assert main(["align", "--device", "cpu", *flag.split(), d + "/idx",
+                     d + "/r.fq", "-o", d + f"/{flag[1]}.sam"]) == 0
+    import contextlib
+    with open(d + "/fastmap.txt", "w") as f, contextlib.redirect_stdout(f):
+        assert main(["fastmap", "--device", "cpu", d + "/idx",
+                     d + "/r.fq"]) == 0
+    from bwamem_tpu_torch.tools import int16_probe
+    with open(d + "/probe.txt", "w") as f, contextlib.redirect_stdout(f):
+        assert int16_probe.main(["--device", "cpu"]) == 0
 
     import chip_smoke
     from bwamem_tpu_torch.io.fastx import _CODE_LUT
@@ -85,8 +97,14 @@ def test_port_runs_with_jax_refused(tmp_path):
                and int(f[1]) & 0x80 and not int(f[1]) & 0x900]
     assert len(victims) == 4
     assert all(not int(f[1]) & 4 for f in victims)  # placed by rescue
-    for name, n in (("shd.sam", 11), ("pb.sam", 3)):
+    for name, n in (("shd.sam", 11), ("pb.sam", 3), ("u.sam", 11),
+                    ("g.sam", 11)):
         recs = [ln.split("\t") for ln in
                 (tmp_path / name).read_text().splitlines()
                 if not ln.startswith("@")]
         assert sum(f[2] != "*" for f in recs) >= n, name
+    fastmap = (tmp_path / "fastmap.txt").read_text().splitlines()
+    assert sum(ln.startswith("SQ\t") for ln in fastmap) == 12
+    assert sum(ln.startswith("EM\t") for ln in fastmap) >= 12
+    probe = (tmp_path / "probe.txt").read_text().splitlines()
+    assert sum(ln.startswith("PASS ") for ln in probe) == 6

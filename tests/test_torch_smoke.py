@@ -1,6 +1,7 @@
 """chip_smoke.py rehearsed on the CPU at a small size (its phases with the
 kernels' plain versions and --device cpu: SE, PE, long reads, --vanilla,
--F and -x pacbio), plus its refusal to
+-F, -x pacbio, the seeding variants, fastmap and the 16-bit probe), plus
+its refusal to
 run — and to print a result — without a CUDA device or outside the
 repository."""
 import os
@@ -95,6 +96,31 @@ def test_long_read_phases_on_cpu(world, monkeypatch):
     assert set(runs) == {"long", "vanilla", "shd", "pacbio"}
     for r in runs.values():
         assert r["K1"] == r["K2"] == r["K3"] == 0 and r["reads_per_s"] > 0
+
+
+def test_probe_kernel_phase_on_cpu():
+    rec = chip_smoke.probe_kernel_phase("cpu", [(8, 128), (64, 130)],
+                                        timed=False)
+    _check_rec(rec)
+    assert rec["library_ms"] is None and rec["bound_by"] == "bytes"
+
+
+def test_variant_and_fastmap_phases_on_cpu(world, monkeypatch):
+    """Phases 9 and 10 at a tiny size, with their checks against a second
+    CPU run; CPU tensors launch no kernel."""
+    monkeypatch.chdir(world)  # the CLI appends to ./time.log
+    runs = chip_smoke.variant_phases(world, device="cpu", sizes=(48, 16),
+                                     heads=(12, 6))
+    assert set(runs) == {"u2", "u3", "g", "u4"}
+    for r in runs.values():
+        assert r["K1"] == r["K2"] == r["K3"] == 0 and r["reads_per_s"] > 0
+    assert chip_smoke.fastmap_phase(world, device="cpu", n_head=10) > 0
+
+
+def test_probe_phase_on_cpu(capsys):
+    assert chip_smoke.probe_phase("cpu") == 0  # the plain versions
+    out = capsys.readouterr().out
+    assert out.count("  PASS ") == 6 and "  VERDICT: " in out
 
 
 @pytest.mark.parametrize("alone", [False, True])
