@@ -12,7 +12,8 @@ Same stages, same output order:
     indexes the round-3 LAST-like automaton rides the same trips.
   compaction: emitted candidates in (read, end) order.
   round 1, backward: every candidate extended maximally to the left
-    (not in mode "fwdmem").
+    (not in mode "fwdmem"); in mode "mem" with the JAX walk's staged
+    lane compaction, which decides each lane's early-kill neighbour.
   filter: mode "smem" keeps a candidate iff its qbeg is strictly below
     every later-ending candidate's qbeg within the same read; mode "mem"
     drops only adjacent duplicates; mode "fwdmem" keeps every segment of
@@ -25,9 +26,12 @@ Same stages, same output order:
 
 Torch has dynamic shapes, so every compaction is exact (nonzero on the
 emission mask, which keeps order). The JAX package's fixed pools, their
-overflow retry and learned sizes, and its staged lane compaction exist
-only for XLA's static shapes and are left out; its converged result is the
-untruncated one computed here.
+overflow retry and learned sizes exist only for XLA's static shapes and
+are left out; its converged result is the untruncated one computed here.
+Its staged lane compaction of the round-1 backward walk changes which
+lane a lane is compared with in the early kill, and mode "mem" keeps
+what the kill froze, so there the port follows the same schedule on the
+width of the JAX pool (cand_pool slots a read, `pool_reads` reads).
 """
 from __future__ import annotations
 
@@ -47,6 +51,10 @@ _EXIT_CHECK = 4
 @dataclass(frozen=True)
 class SeedConfig:
     min_seed_len: int = 19
+    # the JAX pool's candidate slots per read; with the read count it
+    # sets the width on which the round-1 backward walk's compaction
+    # schedule (r1_schedule, mode "mem") acts
+    cand_pool: int = 32
     max_occ: int = 500     # subsample SMEMs above this occurrence count
     mode: str = "smem"     # "smem" | "mem" (-g: keep nested MEMs) |
     #                        "fwdmem" (-u 3: forward-only MEMs)
@@ -56,6 +64,8 @@ class SeedConfig:
     split_factor: float = 1.5
     split_width: int = 10
     max_mem_intv: int = 20
+    # (trip, divisor) points of the round-1 walk's lane compaction
+    r1_schedule: tuple = ((6, 2), (12, 4), (16, 8))
 
 
 def _compact(mask, *fields):
@@ -266,7 +276,7 @@ def _forward_pass2(fm, reads, lens, min_seed_len, strategy=None):
 
 
 def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None,
-                   text_walk=False):
+                   text_walk=False, schedule=(), pool_width: int = 0):
     """Extend each candidate maximally to the left (the FM walk, k-side
     interval only). Flat (P,) lanes in (group, end) order.
 
@@ -274,31 +284,55 @@ def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None,
     (bwt_smem1a's min_intv; default 1). group: optional (P,) segment key
     of the contained-walker early kill (defaults to rid).
 
-    Early kill: when a lane reaches the same (qb, k, s) as the next lane
-    of its group, it is contained and stops walking — the containment
-    filter drops it either way. Mode "mem" keeps such a lane where it
-    stopped, so the kill is part of its output, as in the JAX package.
-    text_walk: lanes at s == 1 are never killed and walk on to their true
-    left end, which is where the JAX package's text walk (on for read
-    buckets of 384 bp or more) takes them. (The JAX package kills in
-    compacted lane sets past 4096 lanes, where a lane's neighbour can
-    differ from the port's; mode "mem" can then keep a nested MEM at
-    another qbeg.)"""
+    Early kill: when a lane reaches the same (qb, k, s) as its neighbour
+    in the same group, it is contained and stops walking — the
+    containment filter drops it either way. Mode "mem" keeps such a lane
+    where it stopped, so the kill is part of its output, as in the JAX
+    package. text_walk: lanes at s == 1 are never killed and walk on to
+    their true left end, which is where the JAX package's text walk (on
+    for read buckets of 384 bp or more) takes them.
+
+    A lane's neighbour is the next lane, unless `schedule` compacts the
+    lanes (mode "mem"): the JAX walk's staged compaction on a pool of
+    `pool_width` lanes (bwamem_tpu/ops/seeding.py _backward_pass). With a
+    pool of 4096 lanes or more, at each (t, d) with t <= min(16, L), after
+    t trips: if max(W // d, 256) < W (W: the current set's width) and the
+    lanes still walking there fit in it, they become the new set of that
+    width, and from then on a lane's neighbour is the next lane of the
+    set. Lanes that the JAX walk has handed to its text walk (s == 1)
+    have left the set. No lane moves: only the neighbour changes."""
     B, L = reads.shape
     P = qbeg.shape[0]
+    dev = qbeg.device
     reads_flat = reads.reshape(-1)
     floor = torch.ones_like(s) if floor is None else floor.to(s.dtype)
     group = rid if group is None else group
-    same_grp = torch.cat([group[1:] == group[:-1],
-                          torch.zeros(1, dtype=torch.bool,
-                                      device=group.device)])
+    lane = torch.arange(P, device=dev)
+    nxt = (lane + 1).clamp(max=max(P - 1, 0))
+    has_nxt = lane < P - 1
+    same_grp = has_nxt & (group[nxt] == group)
     qb, kk, ss = qbeg.clone(), k.clone(), s.clone()
-    done = torch.zeros(P, dtype=torch.bool, device=qb.device)
-
-    def nxt(a):
-        return torch.cat([a[1:], a[-1:]])
+    done = torch.zeros(P, dtype=torch.bool, device=dev)
+    sched = [(int(t), int(d)) for t, d in schedule
+             if 0 < t <= min(16, L) and d > 1] if pool_width >= 4096 else []
+    W = pool_width
 
     for it in range(L):
+        while sched and sched[0][0] == it:
+            d = sched.pop(0)[1]
+            cap = max(W // d, 256)
+            walking = ~done
+            if text_walk:
+                walking &= ss != 1
+            if cap >= W or int(walking.sum()) > cap:
+                continue
+            W = cap
+            idx = walking.nonzero().squeeze(1)
+            nxt = lane.clone()
+            nxt[idx[:-1]] = idx[1:]
+            has_nxt = torch.zeros(P, dtype=torch.bool, device=dev)
+            has_nxt[idx[:-1]] = True
+            same_grp = has_nxt & (group[nxt] == group)
         if it % _EXIT_CHECK == 0 and bool(done.all()):
             break
         j = qb - 1
@@ -312,7 +346,8 @@ def _backward_pass(fm, reads, rid, qbeg, k, s, floor=None, group=None,
         qb = torch.where(ok, j, qb)
         kk = torch.where(ok, nk, kk)
         ss = torch.where(ok, ns, ss)
-        same = same_grp & (nxt(qb) == qb) & (nxt(ss) == ss) & (nxt(kk) == kk)
+        same = (same_grp & (qb[nxt] == qb) & (ss[nxt] == ss)
+                & (kk[nxt] == kk))
         if text_walk:
             same &= ss != 1
         done = ~ok | same
@@ -468,10 +503,13 @@ def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
 
 
 def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
-                    cfg: SeedConfig = SeedConfig()):
+                    cfg: SeedConfig = SeedConfig(),
+                    pool_reads: int | None = None):
     """End-to-end batched seeding in cfg.mode.
 
-    reads: (B, L) int codes (amb/pad = 4); lens: (B,) int. Returns flat
+    reads: (B, L) int codes (amb/pad = 4); lens: (B,) int. pool_reads:
+    the read count the JAX package sizes its candidate pool for (its
+    aligner pads a batch to bucket_count(B)); B by default. Returns flat
     seed arrays sorted by (read, qend, SA rank) — or, with the re-seed
     rounds (cfg.reseed in mode "smem"), by (read, qbeg, qend, SA rank):
     read_id, qbeg, qend, rbeg (doubled coordinates), n_occ."""
@@ -509,8 +547,11 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     else:
         # the text walk changes no SMEM (killed lanes are dropped either
         # way), so only mode "mem" needs it
-        qbeg, k, s = _backward_pass(fm, reads, rid, start, k, s,
-                                    text_walk=cfg.mode == "mem" and L >= 384)
+        mem = cfg.mode == "mem"
+        qbeg, k, s = _backward_pass(
+            fm, reads, rid, start, k, s, text_walk=mem and L >= 384,
+            schedule=cfg.r1_schedule if mem else (),
+            pool_width=(pool_reads or B) * cfg.cand_pool)
         if cfg.mode == "mem":
             keep = _dup_filter(qbeg, end, rid, s, cfg.min_seed_len)
         else:

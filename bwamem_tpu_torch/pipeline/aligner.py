@@ -39,7 +39,7 @@ from ..ops.extend import (ExtendParams, end_choice, extend_batch_auto,
                           extend_choose_desc)
 from ..ops import fm as fmops
 from ..ops.seeding import SeedConfig, bowtie_seed_batch, smem_seed_batch
-from ..utils.shapes import bucket_len, bucket_read_len
+from ..utils.shapes import bucket_count, bucket_len, bucket_read_len
 from .chain import Chain
 from .options import FILTER_COEF, MEM_F_NO_RESCUE, MemOptions, cal_max_gap
 from .regions import AlnReg, mem_sort_dedup_patch
@@ -339,8 +339,10 @@ class MemAligner:
                     ktab=(fmops.get_kmer_table(self.fm, ktab_k)
                           if ktab_k else None), ktab_k=ktab_k)
             else:
+                # the JAX aligner pads the batch to bucket_count(B)
                 out = smem_seed_batch(self.fm, reads_t, lens_t,
-                                      self.seed_cfg)
+                                      self.seed_cfg,
+                                      pool_reads=bucket_count(B))
             host = {k: v.cpu().numpy() for k, v in out.items()}
         self.stats["n_seeds"] += len(host["rbeg"])
         bounds = np.searchsorted(host["read_id"], np.arange(B + 1))

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (bwamem_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-k1-jobs DIR]
 
 Phases (each prints its own lines; any failure exits nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -10,13 +10,16 @@ Phases (each prints its own lines; any failure exits nonzero):
   2. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, exact equality, median of 5 timed runs, with the bound
      (the larger of bytes over HBM bandwidth and int32 operations over the
-     int32 rate, for the rows these inputs run):
+     int32 rate, for the live cells these inputs run; a K1 job that fits
+     16 bits counts half the operations a cell):
      K1 at QMAX 192, TMAX 384, 32768 jobs + edge lanes, all four
-     (opt_ext, zdrop) variants, and on its wide route at QMAX 1024,
-     TMAX 2048, 4096 jobs, all four variants; K1 at the -x pacbio object
-     path's three buckets (QMAX 64, 192 and 1024 against TMAX 1024, 768
-     and 2048, 4096 jobs each) with its scoring (-B 1, -O 1, -E 1, no
-     clipping bonus); K2 at QMAX 192, TMAX 768, 4096 jobs + edge lanes,
+     (opt_ext, zdrop) variants, and at QMAX 1024, TMAX 2048 (1 kb reads),
+     4096 jobs, all four variants; K1 at the -x pacbio object path's
+     three buckets (QMAX 64, 192 and 1024 against TMAX 1024, 768 and
+     2048, 4096 jobs each) with its scoring (-B 1, -O 1, -E 1, no
+     clipping bonus); K1 in one launch spanning every width class and
+     its wide route with its edge lanes (make_mixed_jobs), all four
+     variants; K2 at QMAX 192, TMAX 768, 4096 jobs + edge lanes,
      rev_skip 0/19 x minsc 0/19 (the plain version timed on the
      main-path variant, rev_skip 19 and minsc 19, only), and at the seed
      filter's 200 x 200 windows with rev_skip 0 and minsc 0, 65536 jobs
@@ -34,15 +37,20 @@ Phases (each prints its own lines; any failure exits nonzero):
   4. align the SE reads (two chunks of 16384) through the CLI entry point
      with --device cuda, counting K1 launches; then the first 1024 reads
      with --device cpu, whose SAM must be byte-identical to the GPU run's
-     (apart from @PG);
+     (apart from @PG); then K1 on the inputs of the second (warm) chunk's
+     launch, captured by wrapping extend_kernel.extend_batch: exact
+     against the plain version, timed, with its qlen quartiles, live-cell
+     share and bound (so too after phase 6, on its launch, and after
+     phase 8, on -x pacbio's 1024 bucket; --save-k1-jobs keeps the three
+     inputs for tools/k1_bench.py);
   5. align the pairs from two files (two chunks of 8192 pairs) through the
      CLI entry point with --device cuda, counting K1 and K2 launches; then
      the first 1024 pairs on the GPU and with --device cpu, whose SAM must
      be byte-identical (apart from @PG);
   6. 4096 SE reads of 1 kb (utils/simgenome.simulate_reads: 1%
      substitutions, 0.2% insertions, 0.2% deletions) at the default
-     flags in one chunk: the per-seed SW filter
-     on K2, the extension on K1's wide route;
+     flags in one chunk: the per-seed SW filter on K2, the extension on
+     K1 at QMAX 1024;
   7. 16384 SE reads of 250 bp (1% substitutions) under --vanilla: the
      extension on K3;
   8. -F on the first 16384 reads of phase 4, then -x pacbio on 1024 reads
@@ -65,6 +73,7 @@ Needs one CUDA device; exits nonzero without one.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -73,6 +82,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager, nullcontext
 
 GENOME_LEN = 4_600_000
 N_READS = 32_768
@@ -81,7 +91,7 @@ READ_LEN = 150
 N_COMPARE = 1024
 KERNEL_SHAPES = dict(N=32_768, QMAX=192, TMAX=384)
 VARIANTS = [(False, 0), (False, 100), (True, 0), (True, 100)]
-WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=2048)  # K1's wide route: 1 kb
+WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=2048)  # K1 at 1 kb reads' rows
 K3_SHAPES = dict(N=32_768, QMAX=256, TMAX=384)  # --vanilla, 250 bp reads
 K3_VARIANTS = [(100, 0), (100, 100)]  # (w, zdrop); --vanilla keeps -d 0
 K3_WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=1536)
@@ -201,17 +211,36 @@ def _bound(nbytes: int, ops: int) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def _ext_bound(args, rows, opt_ext: bool, w: int) -> dict:
-    """K1/K3 bound on these inputs: every row an alignment ran (`rows`,
-    from the plain version) costs OPS_PER_CELL operations per live column
-    (qlen + 1 columns, or the band's 2w + 2 when it is narrower)."""
-    q, t, ql = args[0], args[1], args[2]
-    cols = ql.long().clamp(max=q.shape[1]) + 1
+def _live_cells(args, rows, opt_ext: bool, w: int):
+    """(N,) live cells of each job: the rows it ran (`rows`, from the
+    plain version) times its live columns (qlen + 1, or the band's 2w + 2
+    when that is narrower)."""
+    q, ql = args[0], args[2]
+    cols = ql.long().clamp(0, q.shape[1]) + 1
     if opt_ext:
         cols = cols.clamp(max=2 * w + 2)
-    cells = int((rows.long() * cols).sum())
+    return rows.long() * cols
+
+
+def _ext_bound(args, rows, params, i16: bool = True) -> dict:
+    """K1/K3 bound on these inputs: every live cell (_live_cells) costs
+    OPS_PER_CELL int32 operations; with `i16` (K1), half as many when the
+    job passes K1's 16-bit predicate (extend_kernel.fits_i16), since two
+    such cells share one 32-bit operation. No kernel does a live cell's
+    work in fewer operations, nor moves fewer bytes than its inputs and
+    outputs. Also returns the jobs' 16-bit share (i16_share)."""
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels.extend_kernel import fits_i16
+
+    q, t, ql, tl, h0, mat = args
+    cells = _live_cells(args, rows, params.opt_ext, params.w)
+    ok = (fits_i16(tl, h0, mat, params, q.shape[1], t.shape[1]) if i16
+          else torch.zeros_like(cells, dtype=torch.bool))
+    ops = int(torch.where(ok, cells * (OPS_PER_CELL // 2),
+                          cells * OPS_PER_CELL).sum())
     nbytes = q.numel() + t.numel() + 3 * 4 * len(ql) + 100 + 6 * 4 * len(ql)
-    return _bound(nbytes, OPS_PER_CELL * cells)
+    return dict(_bound(nbytes, ops), i16_share=float(ok.float().mean()))
 
 
 def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
@@ -264,14 +293,136 @@ def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
         if timed:
             ms = _median_ms(lambda: run_k(*args, p))
             plain_ms = _median_ms(lambda: run_p(*args, p))
-        bound = _ext_bound(args, want["rows"], p.opt_ext, p.w)
+        bound = _ext_bound(args, want["rows"], p, i16=kernel == "K1")
         print(f"{name} {var} QMAX {shapes['QMAX']} TMAX {shapes['TMAX']}: "
               f"exact on {shapes['N']} jobs; kernel {ms} ms, plain "
               f"{plain_ms} ms, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']})", flush=True)
+              f"({bound['bound_by']}; 16-bit jobs "
+              f"{bound.pop('i16_share'):.4f})", flush=True)
         if var == product:
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
     return rec
+
+
+def make_mixed_jobs(rng, N, QMAX, TMAX):
+    """One K1 launch that spans every width class: make_jobs' jobs with
+    qlen 0..min(QMAX, 1023) in even steps over the first 100 lanes and
+    short ones after, one job of qlen QMAX among them (at QMAX > 1024 the
+    wide route's only job), tlen 0, qlen 1, a negative qlen, the
+    h0 = 100000 lane outside the 16-bit predicate and h0 past 2^20 (the
+    int32 route's 64-bit row-max key)."""
+    import numpy as np
+
+    q, t, ql, tl, h0 = make_jobs(rng, N, QMAX, TMAX)
+    ql = rng.integers(0, 200, N).astype(np.int32)
+    ql[:100] = np.arange(100) * (min(QMAX, 1023) // 100)
+    ql[100], ql[101], ql[102] = QMAX, 1, -3
+    tl[103] = 0
+    h0[104] = 100_000
+    h0[105:108] = 3_000_000
+    return q, t, ql, tl, h0
+
+
+def mixed_kernel_phase(device: str = "cuda", N: int = 4096,
+                       QMAX: int = 1100, TMAX: int = 1300) -> None:
+    """K1 on make_mixed_jobs in all four (opt_ext, zdrop) variants: one
+    launch each, exact against the plain version."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.ops.extend import ExtendParams, make_score_matrix
+    from bwamem_tpu_torch.ops.kernels import extend_kernel as k1
+
+    args = [torch.from_numpy(x).to(device) for x in (
+        *make_mixed_jobs(np.random.default_rng(31), N, QMAX, TMAX),
+        make_score_matrix(1, 4))]
+    for o, z in VARIANTS:
+        p = ExtendParams(w=40, zdrop=z, opt_ext=o)
+        want = k1.extend_batch_plain(*args, p)
+        got = k1.extend_batch(*args, p)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        bad = [k for k in got if not torch.equal(got[k], want[k])]
+        if bad:
+            raise SystemExit(f"K1 != plain on the mixed-width launch "
+                             f"({o}, {z}): {bad}")
+        print(f"K1 extend_dense mixed widths ({o}, {z}) QMAX {QMAX} TMAX "
+              f"{TMAX}: exact on {N} jobs (qlen 0..{QMAX}, tlen 0, "
+              f"h0 100000 and 3000000 lanes)", flush=True)
+
+
+@contextmanager
+def capture_k1():
+    """Record the inputs of every K1 call made inside the block: wraps
+    extend_kernel.extend_batch, which ops/extend.py calls through the
+    module attribute, and clones each call's tensors. Yields the list of
+    calls, each (query, target, qlen, tlen, h0, mat, params)."""
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import extend_kernel
+
+    orig = extend_kernel.extend_batch
+    calls = []
+
+    def wrapped(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return orig(*args)
+
+    extend_kernel.extend_batch = wrapped
+    try:
+        yield calls
+    finally:
+        extend_kernel.extend_batch = orig
+
+
+def captured_k1(label: str, call, save_dir: str | None = None,
+                timed: bool = True) -> dict:
+    """K1 on the inputs of one captured main-path launch: exact against
+    its plain version, timed (median of 5; `timed` False skips it), with
+    the job count, the qlen quartiles, the live-cell share (live cells
+    over the rows each job ran times QMAX + 1) and the bound. With
+    save_dir, the inputs go to <save_dir>/<label>.npz (tools/k1_bench.py
+    reads them). Returns the record."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import extend_kernel as k1
+
+    *args, p = call
+    N, QMAX = args[0].shape
+    TMAX = args[1].shape[1]
+    want = k1.extend_batch_plain(*args, p)
+    got = k1.extend_batch(*args, p)
+    if args[0].is_cuda:
+        torch.cuda.synchronize()
+    err = max(int((got[k].long() - want[k].long()).abs().max())
+              for k in got) if N else 0
+    if err != 0:
+        raise SystemExit(f"K1 != plain on the captured {label} launch: "
+                         f"max abs err {err}")
+    ms = plain_ms = None
+    if timed:
+        ms = _median_ms(lambda: k1.extend_batch(*args, p))
+        plain_ms = _median_ms(lambda: k1.extend_batch_plain(*args, p))
+    bound = _ext_bound(args, want["rows"], p)
+    live = int(_live_cells(args, want["rows"], p.opt_ext, p.w).sum())
+    full = int((want["rows"].long() * (QMAX + 1)).sum())
+    qs = np.percentile(args[2].cpu().numpy(), [25, 50, 75])
+    print(f"K1 on the captured {label} launch: {N} jobs, QMAX {QMAX}, TMAX "
+          f"{TMAX}, qlen quartiles {qs[0]:g} / {qs[1]:g} / {qs[2]:g}, live "
+          f"cells {live} = {live / max(full, 1):.4f} of rows x (QMAX+1); "
+          f"exact; kernel {ms} ms, plain {plain_ms} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; 16-bit jobs "
+          f"{bound.pop('i16_share'):.4f})", flush=True)
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(save_dir, f"{label}.npz"),
+            **{k: a.cpu().numpy() for k, a in zip(
+                ("query", "target", "qlen", "tlen", "h0", "mat"), args)},
+            params=json.dumps(dataclasses.asdict(p)))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
 def make_sw_jobs(rng, N, QMAX, TMAX):
@@ -557,20 +708,23 @@ def _records(path):
 def align_phase(d: str, device: str = "cuda",
                 chunk_reads: int = CHUNK_READS):
     """The main path: `align` through the CLI entry point on `device`,
-    with the kernel's launch count reset just before and read just after.
-    Then the first N_COMPARE reads on the CPU. Returns the launch count."""
+    with the kernel's launch count reset just before and read just after
+    and its calls captured (capture_k1). Then the first N_COMPARE reads on
+    the CPU. Returns the launch count, reads/s and the captured calls."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import extend_kernel
 
     idx = os.path.join(d, "idx")
     out = os.path.join(d, f"{device}.sam")
+    tsv = os.path.join(d, f"{device}.tsv")
     argv = ["align", "--device", device, "-t", "1", "-K",
-            str(chunk_reads * READ_LEN), idx, os.path.join(d, "reads.fq"),
-            "-o", out]
+            str(chunk_reads * READ_LEN), "-f", tsv, idx,
+            os.path.join(d, "reads.fq"), "-o", out]
     extend_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
-    if main(argv) != 0:
-        raise SystemExit("align failed")
+    with capture_k1() as calls:
+        if main(argv) != 0:
+            raise SystemExit("align failed")
     wall = time.perf_counter() - t0
     launches = extend_kernel.LAUNCHES
     recs = _records(out)
@@ -583,9 +737,13 @@ def align_phase(d: str, device: str = "cuda",
         and abs(int(f[3]) - 1 - int(f[0].split("_")[1])) <= 5
         and bool(int(f[1]) & 16) == (f[0].split("_")[2] == "1")
         for f in prim)
+    row = _timing_row(tsv)
+    n_chunks = -(-n // chunk_reads)
     print(f"align --device {device}: {n} reads in {wall:.2f} s wall "
           f"(index load + setup included) = {n / wall:.1f} reads/s; "
           f"mapped {mapped / n:.4f}; at simulated origin {placed / n:.4f}; "
+          f"spans collect {row.get('collect')} s, ext_device "
+          f"{row.get('ext_device')} s over {n_chunks} chunks; "
           f"K1 launches {launches}", flush=True)
     if launches < 1 and device == "cuda":
         raise SystemExit("the main path launched no extension kernel")
@@ -609,7 +767,7 @@ def align_phase(d: str, device: str = "cuda",
     print(f"first {len(names)} reads: GPU SAM == CPU SAM "
           f"({len(want)} lines, CPU run {time.perf_counter() - t0:.1f} s)",
           flush=True)
-    return launches, n / wall
+    return launches, n / wall, calls
 
 
 def _lead_clip(cigar: str) -> int:
@@ -676,7 +834,8 @@ def pe_align_phase(d: str, device: str = "cuda",
           f"{row.get('rescue_jobs')} ({row.get('rescue_applied')} applied) "
           f"in {n_chunks} chunks; spans collect {row.get('collect')} s, "
           f"pe_rescue {row.get('pe_rescue')} s, pe_rescue_sw "
-          f"{row.get('pe_rescue_sw')} s, finalize {row.get('finalize')} s; "
+          f"{row.get('pe_rescue_sw')} s, ext_device {row.get('ext_device')} "
+          f"s, finalize {row.get('finalize')} s; "
           f"K1 launches {k1}, K2 launches {k2}", flush=True)
     if device == "cuda" and (k1 < 1 or k2 < 1):
         raise SystemExit("the PE main path launched no K1 or no K2")
@@ -709,13 +868,16 @@ def _head(src: str, dst: str, n: int) -> None:
 
 
 def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
-               need: tuple, device: str = "cuda") -> dict:
+               need: tuple, device: str = "cuda",
+               capture: bool = False) -> dict:
     """A further main path: SE `align` of `reads` with `flags` through the
     CLI entry point on `device`, every kernel's launch count reset just
     before and read just after; kernels in `need` must have launched. Then
     the first n_head reads with --device cpu, whose SAM must be
     byte-identical to the device run's records of those reads. Returns
-    the launch counts (K1, K1 wide route, K2, K3) and reads/s."""
+    the launch counts (K1, K1 at rows of 1 kb or more, K2, K3), reads/s
+    and, with `capture`, the device run's K1 calls (capture_k1) as
+    k1_calls."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
                                               swalign_kernel)
@@ -737,7 +899,8 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
         m.LAUNCHES = 0
     extend_kernel.WIDE_LAUNCHES = 0
     t0 = time.perf_counter()
-    recs, row = align(device, os.path.join(d, reads), "main")
+    with (capture_k1() if capture else nullcontext()) as calls:
+        recs, row = align(device, os.path.join(d, reads), "main")
     wall = time.perf_counter() - t0
     counts = {k: m.LAUNCHES for k, m in mods.items()}
     counts["K1_wide"] = extend_kernel.WIDE_LAUNCHES
@@ -751,7 +914,7 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     print(f"{tag} ({' '.join(flags) or 'default flags'}) --device {device}: "
           f"{n} reads in {wall:.2f} s wall (index load + setup included) = "
           f"{n / wall:.1f} reads/s; mapped {mapped / n:.4f}; spans {spans}; "
-          f"launches K1 {counts['K1']} (wide route {counts['K1_wide']}), "
+          f"launches K1 {counts['K1']} (1 kb rows {counts['K1_wide']}), "
           f"K2 {counts['K2']}, K3 {counts['K3']}", flush=True)
     if device == "cuda":
         missing = [k for k in need if counts[k] < 1]
@@ -775,7 +938,7 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     print(f"{tag}: first {len(names)} reads: {device} SAM == CPU SAM "
           f"({len(want)} lines, CPU run {time.perf_counter() - t0:.1f} s)",
           flush=True)
-    return dict(counts, reads_per_s=n / wall)
+    return dict(counts, reads_per_s=n / wall, k1_calls=calls)
 
 
 def long_read_phases(d: str, contigs, device: str = "cuda",
@@ -802,7 +965,7 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
     out = {}
     phase("6 long reads (1 kb, default flags)")
     out["long"] = flag_phase(d, "long", "long.fq", heads[0], [],
-                             ("K1", "K1_wide", "K2"), device)
+                             ("K1", "K1_wide", "K2"), device, capture=True)
     phase("7 --vanilla (250 bp)")
     out["vanilla"] = flag_phase(d, "vanilla", "r250.fq", heads[1],
                                 ["--vanilla"], ("K3",), device)
@@ -810,7 +973,8 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
     out["shd"] = flag_phase(d, "shd", "shd.fq", heads[2], ["-F"], ("K1",),
                             device)
     out["pacbio"] = flag_phase(d, "pacbio", "pb.fq", heads[3],
-                               ["-x", "pacbio"], ("K1", "K2"), device)
+                               ["-x", "pacbio"], ("K1", "K2"), device,
+                               capture=True)
     return out
 
 
@@ -924,7 +1088,20 @@ def build_kernels():
                 print("  " + ln.strip(), flush=True)
 
 
-def main() -> int:
+def _widest(calls):
+    """The captured K1 call with the widest rows (largest QMAX)."""
+    return max(calls, key=lambda c: c[0].shape[1])
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke run of the port on "
+                                 "one NVIDIA GPU")
+    ap.add_argument("--save-k1-jobs", metavar="DIR", default=None,
+                    help="also write the captured K1 launches' inputs "
+                    "to DIR/*.npz (for tools/k1_bench.py)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -954,6 +1131,7 @@ def main() -> int:
                     label="seed filter -x pacbio")
     k1_pb = [kernel_phase("cuda", sh, variants=[(False, 0)], scoring=PACBIO)
              for sh in PB_SHAPES]
+    mixed_kernel_phase("cuda")
     k3 = kernel_phase("cuda", K3_SHAPES, kernel="K3", variants=K3_VARIANTS)
     kernel_phase("cuda", K3_WIDE_SHAPES, kernel="K3", variants=[(300, 0)])
     k4 = probe_kernel_phase("cuda")
@@ -972,12 +1150,19 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         phase("4 align")
-        launches, _ = align_phase(d)
+        launches, _, calls = align_phase(d)
+        # the second, warm chunk's launch
+        captured_k1("phase4", calls[min(1, len(calls) - 1)],
+                    args.save_k1_jobs)
 
         phase("5 paired-end align")
         _, sw_launches, _ = pe_align_phase(d)
 
         runs = long_read_phases(d, contigs)
+        captured_k1("phase6", _widest(runs["long"]["k1_calls"]),
+                    args.save_k1_jobs)
+        captured_k1("pacbio1024", _widest(runs["pacbio"]["k1_calls"]),
+                    args.save_k1_jobs)
 
         phase("9 seeding variants (-u 2, -u 3, -g, -u 4)")
         variant_phases(d)

@@ -1,12 +1,15 @@
 """The kernels on the card. K1 (dense extension): exact against its plain
-PyTorch version for all four (opt_ext, zdrop > 0) variants at the main
-path's widths, on its wide route at QMAX 1024, 1536 and 4096 and with a
-global row buffer past 28671 columns, at -x pacbio's scoring in the
-object path's three buckets, one launch counted per call, the
-wrapper's input checks. K3 (banded extension): exact against its plain
-version for (w, zdrop) in (100, 0), (100, 40), (300, 0), (64, 100) with
-degenerate lanes, one launch per call, and extend_batch_auto sends the
-banded shapes to it and the rest to K1. K2 (local SW): exact against its
+PyTorch version for all four (opt_ext, zdrop > 0) variants at QMAX 40,
+192, 600, 1024, 1536, 4096 and 29000 (a global row buffer past 28672
+columns), in one launch mixing every width class with its edge lanes
+(tlen 0, qlen 0 and 1, h0 = 100000, h0 past 2^20, a match score past
+int8), at -x pacbio's scoring in the object path's three buckets, one
+launch counted per call, the wrapper's input checks, the job order the
+kernel bins on the device against job_bins and fits_i16. K3 (banded
+extension): exact against its plain version for (w, zdrop) in (100, 0),
+(100, 40), (300, 0), (64, 100) with degenerate lanes, one launch per
+call, and extend_batch_auto sends the banded shapes to it and the rest to
+K1. K2 (local SW): exact against its
 plain version at the rescue path's widths and three others (TMAX 3072:
 exactly 48 KB of row maxima per block), with and without rev_skip, and at
 the seed filter's 200 x 200 windows (minsc 0, rev_skip 0) at the default
@@ -37,7 +40,8 @@ from bwamem_tpu_torch.ops.kernels import extend_kernel  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import int16_probe  # noqa: E402
 from bwamem_tpu_torch.ops.kernels import swalign_kernel  # noqa: E402
 from chip_smoke import PACBIO, make_filter_jobs  # noqa: E402
-from chip_smoke import make_jobs, make_sw_jobs  # noqa: E402
+from chip_smoke import make_jobs, make_mixed_jobs  # noqa: E402
+from chip_smoke import make_sw_jobs  # noqa: E402
 
 pytestmark = [
     pytest.mark.cuda,
@@ -54,12 +58,21 @@ def _args(n=2000, qmax=192, tmax=384, seed=5, tail=160, b=4):
                                           extend.make_score_matrix(1, b))]
 
 
+def _plain(fn, args, *rest):
+    """A plain version on copies of the inputs on the card (the same torch
+    ops as on the host, quicker there), its result back on the host."""
+    out = fn(*(a.cuda() for a in args), *rest)
+    if isinstance(out, dict):
+        return {k: v.cpu() for k, v in out.items()}
+    return out.cpu()
+
+
 @pytest.mark.parametrize("opt_ext,zdrop", VARIANTS)
 @pytest.mark.parametrize("qmax,tmax", [(192, 384), (40, 80), (600, 700)])
 def test_kernel_matches_plain(opt_ext, zdrop, qmax, tmax):
     args = _args(1500, qmax, tmax)
     p = extend.ExtendParams(w=24, zdrop=zdrop, opt_ext=opt_ext)
-    want = extend_kernel.extend_batch_plain(*args, p)
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
     before = extend_kernel.LAUNCHES
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
@@ -82,13 +95,13 @@ def test_wrapper_checks_inputs():
     assert out["score"].shape == (0,) and extend_kernel.LAUNCHES == before
 
 
-@pytest.mark.parametrize("opt_ext,zdrop", [(False, 0), (True, 40)])
+@pytest.mark.parametrize("opt_ext,zdrop", VARIANTS)
 @pytest.mark.parametrize("qmax", [1024, 1536, 4096])
 def test_kernel_wide_route_matches_plain(opt_ext, zdrop, qmax):
-    # the plain version runs on the host: fewer jobs at the widest row
+    # fewer jobs at the widest rows keep the plain version quick
     args = _args(64 if qmax > 2048 else 300, qmax, qmax + 200)
     p = extend.ExtendParams(w=100, zdrop=zdrop, opt_ext=opt_ext)
-    want = extend_kernel.extend_batch_plain(*args, p)
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
     before = extend_kernel.LAUNCHES
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
@@ -104,7 +117,7 @@ def test_kernel_pacbio_matches_plain(qmax, tmax):
     args = _args(300 if qmax > 192 else 1500, qmax, tmax, tail=tmax, b=1)
     gaps = {k: v for k, v in PACBIO.items() if k not in ("a", "b")}
     p = extend.ExtendParams(w=300, zdrop=0, opt_ext=False, **gaps)
-    want = extend_kernel.extend_batch_plain(*args, p)
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
     before = extend_kernel.LAUNCHES
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
@@ -121,11 +134,88 @@ def test_kernel_wide_route_global_rows():
     args[3].clamp_(max=300)  # short targets keep the plain version quick
     assert extend_kernel._wide_scratch(24, qmax, "cpu") is not None
     p = extend.ExtendParams()
-    want = extend_kernel.extend_batch_plain(*args, p)
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
     got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
     for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("opt_ext,zdrop", VARIANTS[1:])
+def test_kernel_global_rows_other_variants(opt_ext, zdrop):
+    """The global row buffer (29000 columns) under the other three
+    (opt_ext, zdrop) variants."""
+    qmax = 29_000
+    args = _args(24, qmax, qmax + 64, seed=9)
+    args[3].clamp_(max=300)
+    p = extend.ExtendParams(w=100, zdrop=zdrop, opt_ext=opt_ext)
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
+    got = extend_kernel.extend_batch(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    for k in got:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("opt_ext,zdrop", VARIANTS)
+@pytest.mark.parametrize("qmax,tmax", [(192, 384), (1100, 1300)])
+def test_kernel_mixed_widths_one_launch(opt_ext, zdrop, qmax, tmax):
+    """One launch whose jobs span every width class with the edge lanes
+    of chip_smoke.make_mixed_jobs (qlen 0..QMAX, one long job among short
+    ones, tlen 0, qlen 1 and -3, h0 100000 and past 2^20); then the same
+    jobs under a matrix with a match score of 200 (outside int8)."""
+    args = [torch.from_numpy(a) for a in (
+        *make_mixed_jobs(np.random.default_rng(31), 700, qmax, tmax),
+        extend.make_score_matrix(1, 4))]
+    for a in (1, 200):
+        if a != 1:
+            args[5] = args[5].clone()
+            args[5].fill_diagonal_(a)
+        p = extend.ExtendParams(w=40, zdrop=zdrop, opt_ext=opt_ext,
+                                max_mat=a)
+        want = _plain(extend_kernel.extend_batch_plain, args, p)
+        before = extend_kernel.LAUNCHES
+        got = extend_kernel.extend_batch(*(x.cuda() for x in args), p)
+        torch.cuda.synchronize()
+        assert extend_kernel.LAUNCHES == before + 1
+        for k in got:
+            assert torch.equal(got[k].cpu(), want[k]), (a, k)
+
+
+def test_kernel_job_order_matches_job_bins():
+    """The job order the kernel builds on the device (its workspace after
+    a launch) takes the jobs in job_bins' bin order, each once, flagged
+    FITS16 exactly where fits_i16 admits the job; the results are exact."""
+    args = [torch.from_numpy(a) for a in (
+        *make_mixed_jobs(np.random.default_rng(31), 700, 1100, 1300),
+        extend.make_score_matrix(1, 4))]
+    p = extend.ExtendParams(w=40, zdrop=40)
+    q, t, ql, tl, h0, mat = (a.cuda() for a in args)
+    N, QMAX = q.shape
+    TMAX = t.shape[1]
+    out = torch.empty((N, 6), dtype=torch.int32, device="cuda")
+    work = torch.empty(N + extend_kernel.WORK_HEADER, dtype=torch.int32,
+                       device="cuda")
+    assert extend_kernel._wide_scratch(N, QMAX, "cuda") is None
+    rc = extend_kernel._load().bm_extend_dense(
+        q.data_ptr(), t.data_ptr(), ql.data_ptr(), tl.data_ptr(),
+        h0.data_ptr(), mat.data_ptr(), work.data_ptr(), out.data_ptr(), 0,
+        N, QMAX, TMAX, p.o_del, p.e_del, p.o_ins, p.e_ins, p.w, p.zdrop,
+        p.end_bonus, int(p.opt_ext), p.max_mat,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    ent = work[extend_kernel.WORK_HEADER:].cpu().long()
+    job = ent & (extend_kernel.FITS16 - 1)
+    assert sorted(job.tolist()) == list(range(N))
+    fits = extend_kernel.fits_i16(args[3], args[4], args[5], p, QMAX, TMAX)
+    assert not bool(fits.all()) and bool(fits.any())
+    assert torch.equal((ent & extend_kernel.FITS16) != 0, fits[job])
+    bins, _ = extend_kernel.job_bins(args[2], args[3], fits, QMAX, TMAX)
+    assert bool((bins[job].diff() >= 0).all())
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
+    got = extend_kernel._fields(out.cpu())
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
 
 
 def _banded_args(n, qmax, tmax, seed=7):
@@ -142,7 +232,7 @@ def test_banded_kernel_matches_plain(w, zdrop):
     qmax = 1024 if w == 300 else 384
     args = _banded_args(1200, qmax, qmax + 256)
     p = extend.ExtendParams(w=w, zdrop=zdrop, opt_ext=True)
-    want = extend_banded.extend_batch_banded_plain(*args, p)
+    want = _plain(extend_banded.extend_batch_banded_plain, args, p)
     before = extend_banded.LAUNCHES
     got = extend_banded.extend_batch_banded(*(a.cuda() for a in args), p)
     torch.cuda.synchronize()
@@ -177,7 +267,7 @@ def test_extend_batch_auto_routes(w, opt_ext, qmax, route):
     after = (extend_kernel.LAUNCHES, extend_banded.LAUNCHES)
     assert after == ((before[0], before[1] + 1) if route == "K3"
                      else (before[0] + 1, before[1]))
-    want = extend_kernel.extend_batch_plain(*(a.cpu() for a in args), p)
+    want = _plain(extend_kernel.extend_batch_plain, args, p)
     for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
 
@@ -198,7 +288,7 @@ def _sw_args(n, qmax, tmax, seed=6, minsc=19):
 def test_sw_kernel_matches_plain(rev_skip, n, qmax, tmax):
     args = _sw_args(n, qmax, tmax)
     gaps = (6, 1, 6, 1, 1, rev_skip)
-    want = swalign_kernel.sw_align_batch_plain(*args, *gaps)
+    want = _plain(swalign_kernel.sw_align_batch_plain, args, *gaps)
     before = swalign_kernel.LAUNCHES
     got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
     torch.cuda.synchronize()
@@ -218,7 +308,7 @@ def test_sw_kernel_seed_filter_shape(scoring):
         q, t, ql, tl, np.zeros(len(ql), np.int32),
         extend.make_score_matrix(sc["a"], sc["b"]))]
     gaps = (sc["o_del"], sc["e_del"], sc["o_ins"], sc["e_ins"], sc["a"], 0)
-    want = swalign_kernel.sw_align_batch_plain(*args, *gaps)
+    want = _plain(swalign_kernel.sw_align_batch_plain, args, *gaps)
     before = swalign_kernel.LAUNCHES
     got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
     torch.cuda.synchronize()

@@ -165,3 +165,121 @@ def test_cpu_tensors_take_the_plain_version():
     assert extend_kernel.LAUNCHES == before
     assert out["score"].shape == (8,)
 
+
+
+# the main path's K1 shapes (QMAX, TMAX, the largest h0 a seed gives there)
+# and their scoring: 150 bp reads, 1 kb reads, -x pacbio's 1024 bucket
+I16_SHAPES = [(192, 384, 160, {}), (1024, 2048, 1000, {}),
+              (1024, 2048, 1000, dict(o_del=1, e_del=1, o_ins=1, e_ins=1,
+                                      end_bonus=0))]
+
+
+def _i16_top(h0, tlen, QMAX, TMAX, p, amax=1):
+    """fits_i16's sum, as its docstring states it."""
+    width = min(c for c in extend_kernel.CLASS_COLS if c >= min(QMAX, 1024))
+    return (h0 + amax * min(tlen, TMAX) + p.e_ins * (width + 1)
+            + max(p.o_del + p.e_del, p.o_ins + p.e_ins) + p.end_bonus)
+
+
+@pytest.mark.parametrize("QMAX,TMAX,h0max,gaps", I16_SHAPES,
+                         ids=["main", "1kb", "pacbio"])
+def test_fits_i16_at_the_main_path_shapes(QMAX, TMAX, h0max, gaps):
+    """The 16-bit predicate admits every job of the main path's shapes
+    (h0 up to a whole read's seed, targets up to TMAX) and refuses the
+    h0 = 100000 edge lane and the first h0 past its limit."""
+    p = text.ExtendParams(**gaps)
+    b = 1 if gaps else 4
+    mat = torch.from_numpy(jext.make_score_matrix(1, b))
+    tlen = torch.tensor([0, 1, TMAX // 2, TMAX, TMAX + 5], dtype=torch.int32)
+    h0 = torch.full_like(tlen, h0max)
+    assert bool(extend_kernel.fits_i16(tlen, h0, mat, p, QMAX, TMAX).all())
+    assert not bool(extend_kernel.fits_i16(
+        tlen, torch.full_like(tlen, 100_000), mat, p, QMAX, TMAX).any())
+    # the largest h0 that fits for a full-length target, and the next one
+    edge = extend_kernel.I16_LIMIT - 1 - _i16_top(0, TMAX, QMAX, TMAX, p)
+    h = torch.tensor([edge, edge + 1], dtype=torch.int32)
+    t = torch.tensor([TMAX, TMAX], dtype=torch.int32)
+    assert extend_kernel.fits_i16(t, h, mat, p, QMAX, TMAX).tolist() == [
+        True, False]
+    assert not bool(extend_kernel.fits_i16(
+        t[:1], torch.tensor([-1], dtype=torch.int32), mat, p, QMAX, TMAX))
+    # a match score of 2, or an entry outside a signed byte: int32 cells
+    for a, b in ((2, 4), (1, 200)):
+        m2 = torch.from_numpy(jext.make_score_matrix(a, b))
+        assert not bool(extend_kernel.fits_i16(
+            tlen, h0, m2, p, QMAX, TMAX).any())
+
+
+@pytest.mark.parametrize("opt_ext,zdrop", VARIANTS)
+def test_plain_in_int16_at_the_predicate_edge(opt_ext, zdrop):
+    """The plain version's recurrence run in int16 (what a kernel with two
+    16-bit cells a register computes) equals the int64 version on jobs
+    at fits_i16's edge: each job's h0 is the largest its target length
+    admits, so its cells climb to just below 2^14."""
+    rng = np.random.default_rng(11)
+    QMAX, TMAX = 40, 96
+    q, t, ql, tl, _ = make_jobs(rng, 96, QMAX, TMAX)
+    p = _params(opt_ext, zdrop, text)
+    h0 = np.array([extend_kernel.I16_LIMIT - 1
+                   - _i16_top(0, int(x), QMAX, TMAX, p) for x in tl],
+                  dtype=np.int32)
+    args = [torch.from_numpy(a) for a in (q, t, ql, tl, h0,
+                                          jext.make_score_matrix())]
+    assert bool(extend_kernel.fits_i16(args[3], args[4], args[5], p, QMAX,
+                                       TMAX).all())
+    want = extend_kernel.extend_batch_plain(*args, p)
+    got = extend_kernel._plain(*args, p, torch.int16)
+    assert int(want["score"].max()) > extend_kernel.I16_LIMIT - 200
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_job_order_is_a_permutation_back_to_job_order():
+    """job_bins states the kernel's job order: the widest width class
+    first, its 16-bit jobs first, then by rows (powers of two), most
+    first. Taking the jobs in bin order is a permutation, and the kernel
+    writes job k's result at row k, so the results come back in job
+    order: here the plain version run on the jobs in bin order and
+    scattered back equals it run on the jobs as given."""
+    rng = np.random.default_rng(12)
+    QMAX, TMAX = 1100, 1200
+    N = 300
+    q, t, ql, tl, h0 = make_jobs(rng, N, QMAX, TMAX)
+    ql[:40] = rng.integers(0, 33, 40)
+    ql[40] = -1
+    ql[41:45] = [32, 33, 1024, 1025]
+    tl = np.minimum(tl, rng.integers(0, 48, N)).astype(np.int32)
+    tl[45:49] = [0, 1, 3, 4]
+    args = [torch.from_numpy(a) for a in (q, t, ql, tl, h0,
+                                          jext.make_score_matrix())]
+    fits = torch.from_numpy(rng.random(N) < 0.7)
+    bins, cls = extend_kernel.job_bins(args[2], args[3], fits, QMAX, TMAX)
+    assert bins.dtype == torch.int64 and cls.dtype == torch.int64
+    qcol = args[2].long().clamp(0, QMAX)
+    # class c holds the jobs of edges[c] < qcol <= edges[c + 1] (class 0
+    # from qcol 0; the wide route past 1024)
+    edges = (-1,) + extend_kernel.CLASS_COLS + (QMAX,)
+    for c in range(len(edges) - 1):
+        sel = cls == c
+        assert bool(((qcol[sel] > edges[c]) & (qcol[sel] <= edges[c + 1])
+                     ).all()), c
+    assert cls[41:45].tolist() == [0, 1, 5, 6]
+    # rows 0 | 1 | 2-3 | 4-7 ...: a bin per power of two, capped
+    rows = args[3].long().clamp(0, TMAX).tolist()
+    bucket = [min(r.bit_length(), extend_kernel.ROW_BINS - 1) for r in rows]
+    assert bucket[45:49] == [0, 1, 2, 3]
+    order = torch.argsort(bins, stable=True)
+    assert sorted(order.tolist()) == list(range(N))
+    # in bin order: the class descending, then 16-bit jobs first, then
+    # the rows' bin descending
+    lex = [(int(cls[j]), bool(fits[j]), bucket[j]) for j in order.tolist()]
+    assert all(x >= y for x, y in zip(lex, lex[1:]))
+    assert len({(c, f, r) for c, f, r in lex}) == len(set(bins.tolist()))
+    p = _params(False, 40, text)
+    want = extend_kernel.extend_batch_plain(*args, p)
+    part = extend_kernel.extend_batch_plain(
+        *(a[order] for a in args[:5]), args[5], p)
+    for name in want:
+        back = torch.empty_like(part[name])
+        back[order] = part[name]
+        assert torch.equal(back, want[name]), name

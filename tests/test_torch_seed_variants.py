@@ -5,13 +5,15 @@ seeds with at most one mismatch), -g (all MEMs) and the default SMEMs.
   * the aligners' seed_batch on the world of tests/test_seed_variants.py
     (a 20 kb random genome, sa_intv 8): the same seeds in the same order,
     at the default seed interval and at -J 7; and for -g on 400 bp reads
-    of a repeat-rich genome (the JAX package's text walk) and on 256
-    reads, enough candidates for the JAX walk's lane compaction, which
-    is turned off there (the port never compacts);
+    of a repeat-rich genome (the JAX package's text walk), and on
+    batches past 4096 candidate slots, where the JAX walk compacts its
+    lanes (512 reads of a 200 kb and 256 of a 60 kb repeat-rich genome,
+    and the 256 with the compaction off on both sides);
   * the k-mer table equals the JAX table, and the jump-start through it
     gives the same seeds as the walk step by step;
   * the CLI: SAM identical to the JAX CLI's apart from @PG for SE -u 2,
-    -u 3, -u 4, -g and PE -u 3 on a repeat-rich genome."""
+    -u 3, -u 4, -g (also on a batch past 4096 candidate slots) and PE
+    -u 3 on a repeat-rich genome."""
 import os
 import sys
 
@@ -126,21 +128,50 @@ def test_mem_mode_long_reads_match_jax(repeats):
     assert tal.seed_batch(seqs) == want
 
 
-def test_mem_mode_big_batch_matches_uncompacted_jax(repeats):
-    """-g on a batch of more than 4096 candidates, where the JAX package's
-    backward walk would compact its live lanes (and so compare a lane
-    with another neighbour in the early kill, which decides the qbeg of a
-    nested MEM that -g keeps): the port equals the JAX walk without
-    compaction, every lane against its neighbour in (read, end) order."""
+@pytest.fixture(scope="module")
+def repeats200():
+    """A 200 kb repeat-rich genome (sa_intv 4) indexed by both packages."""
+    from bwamem_tpu.index.build import build_index_from_codes as jbuild
+    from bwamem_tpu.index.format import Annotation as JAnn
+    from tests.test_torch_index import repeat_index
+
+    g, tidx = repeat_index(size=200_000)
+    jidx = jbuild(g, JAnn(names=tidx.ann.names, lengths=tidx.ann.lengths,
+                          offsets=tidx.ann.offsets), sa_intv=4)
+    return g, jidx, tidx
+
+
+@pytest.mark.parametrize("world,n_reads,schedule", [
+    ("repeats200", 512, "default"), ("repeats", 256, "default"),
+    ("repeats", 256, ())], ids=["200kb_512", "60kb_256", "60kb_256_off"])
+def test_mem_mode_big_batch_matches_uncompacted_jax(world, n_reads, schedule,
+                                                    request, tmp_path):
+    """-g on a batch of more than 4096 candidate slots (the JAX pool is
+    bucket_count(reads) x cand_pool), where the JAX package's backward
+    walk compacts its live lanes at its r1_schedule points and so compares
+    a lane with another neighbour in the early kill, which decides the
+    qbeg of a nested MEM that -g keeps: the port, given the JAX run's
+    cand_pool and schedule, gives the same seeds; with the schedule off
+    (()), both walk uncompacted. A fresh pool store keeps the JAX
+    aligner's pool sizes from other tests' learning."""
     from dataclasses import replace
 
-    g, jidx, tidx = repeats
-    seqs = _sample(g, 256, 150, 0.01, 3)
+    from bwamem_tpu.pipeline.poolstore import PoolStore
+    from bwamem_tpu_torch.utils.shapes import bucket_count
+
+    g, jidx, tidx = request.getfixturevalue(world)
+    seqs = _sample(g, n_reads, 150, 0.01, 3)
     jal, tal = _aligners(jidx, tidx, re_seed=True)
-    jal.seed_cfg = replace(jal.seed_cfg, r1_schedule=())
+    jal.pool_store = PoolStore(str(tmp_path / "pools.json"))
+    if schedule != "default":
+        jal.seed_cfg = replace(jal.seed_cfg, r1_schedule=schedule)
+    want = jal.seed_batch(seqs)
+    tal.seed_cfg = replace(tal.seed_cfg, cand_pool=jal.seed_cfg.cand_pool,
+                           r1_schedule=jal.seed_cfg.r1_schedule)
+    assert bucket_count(n_reads) * jal.seed_cfg.cand_pool >= 4096
     got = tal.seed_batch(seqs)
     assert sum(map(len, got)) > 4096
-    assert got == jal.seed_batch(seqs)
+    assert got == want
 
 
 def test_kmer_table_matches_jax(env):
@@ -193,7 +224,9 @@ def test_kmer_jump_start_identical(env, inexact):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """A 100 kb repeat-rich genome indexed by the port's CLI, 40 SE reads
-    of 150 bp (1% substitutions, 0.2% indels) and 16 FR pairs."""
+    of 150 bp (1% substitutions, 0.2% indels), 16 FR pairs, and 192 SE
+    reads of 150 bp: a -g batch of 192 x 32 = 6144 candidate slots, where
+    the JAX walk compacts its lanes."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.io.fastx import _CODE_LUT
     from bwamem_tpu_torch.utils.simgenome import (make_repeat_genome,
@@ -207,6 +240,8 @@ def world(tmp_path_factory):
     write_fastq(str(d / "r150.fq"), simulate_reads(
         rng, contigs, 40, read_len=150, sub=0.01, ins=0.002, dele=0.002,
         prefix="r150"))
+    write_fastq(str(d / "r150_big.fq"), simulate_reads(
+        rng, contigs, 192, read_len=150, sub=0.01, prefix="big"))
     g = _CODE_LUT[np.frombuffer(contigs[0][1].encode(), np.uint8)]
     chip_smoke.make_pairs(str(d), g, 16, 72, victim_every=4)
     assert main(["index", str(d / "ref.fa"), "-p", str(d / "idx")]) == 0
@@ -218,6 +253,7 @@ CASES = {
     "u3": (["r150.fq"], ["-u", "3"]),
     "u4": (["r150.fq"], ["-u", "4"]),
     "g": (["r150.fq"], ["-g"]),
+    "g_big": (["r150_big.fq"], ["-g"]),
     "u3_pe": (["r1.fq", "r2.fq"], ["-u", "3"]),
 }
 
@@ -229,11 +265,14 @@ def _records(path):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_cli_matches_jax(world, case, monkeypatch):
+def test_cli_matches_jax(world, case, monkeypatch, tmp_path):
     from bwamem_tpu.cli import main as jax_main
     from bwamem_tpu_torch.cli import main as port_main
 
     monkeypatch.chdir(world)  # both CLIs append to ./time.log
+    # a fresh pool store: the JAX CLI starts at the default cand_pool,
+    # as the port does, whatever other tests taught the shared store
+    monkeypatch.setenv("BWAMEM_TPU_POOLS", str(tmp_path / "pools.json"))
     files, flags = CASES[case]
     inputs = [str(world / f) for f in files]
     outs = {}
