@@ -46,7 +46,7 @@
 //     in log2(G) xor shuffles, or one __reduce_max_sync for a whole-warp
 //     group. h_end is picked by the lane that holds column qcol, which
 //     alone keeps gscore/gtle: no broadcast.
-//   * 16-bit cells, two jobs a group, on strips of up to BM_PAIR_MAX_S
+//   * 16-bit cells, two jobs a group, on strips of up to kPairMaxS = 8
 //     columns (classes 0-3, qcol <= 256: on strips of 16 and 32 the pair
 //     measured no faster than int32 cells, PERF.md): when every job of a
 //     unit carries kFits16 (and there is no band), job A of each group
@@ -91,12 +91,9 @@ namespace {
 
 constexpr int kNeg = -0x40000000;
 constexpr unsigned kFull = 0xffffffffu;
-// Strips of up to BM_PAIR_MAX_S columns take two jobs a group on 16-bit
-// cells; wider ones one job a group (0: every job on int32 cells, to time
-// the 16-bit route against with tools/k1_bench.py --variant)
-#ifndef BM_PAIR_MAX_S
-#define BM_PAIR_MAX_S 8
-#endif
+// Strips of up to kPairMaxS columns take two jobs a group on 16-bit cells;
+// wider ones one job a group
+constexpr int kPairMaxS = 8;
 
 constexpr int kWarps = 4;  // warps per block
 constexpr int kWide = 6;  // the wide route's class
@@ -170,7 +167,7 @@ struct Params {
 // jobs a group of a strip-width-S kernel takes in one unit: two (one a
 // word half) or one
 template <int S>
-constexpr int kPerGroup = S <= BM_PAIR_MAX_S ? 2 : 1;
+constexpr int kPerGroup = S <= kPairMaxS ? 2 : 1;
 
 // per-alignment state and trackers (each lane of a group holds a copy)
 struct Job {

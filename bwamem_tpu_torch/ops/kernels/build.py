@@ -31,19 +31,16 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def build(source: Path, lib: Path,
-          extra: tuple = ()) -> tuple[float, str | None]:
-    """Compile `source` into `lib` (with `extra` nvcc flags) if the
-    library is missing or older than its source. Returns (seconds spent
-    compiling, the compiler's output with its register and spill report);
-    (0.0, None) when up to date."""
+def build(source: Path, lib: Path) -> tuple[float, str | None]:
+    """Compile `source` into `lib` if the library is missing or older than
+    its source. Returns (seconds spent compiling, the compiler's output
+    with its register and spill report); (0.0, None) when up to date."""
     if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
         return 0.0, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
-    res = subprocess.run([nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
-                          str(source)],
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} "

@@ -35,7 +35,6 @@ NEG16 = -0x4000        # F's sentinel in 16-bit cells
 I16_LIMIT = 1 << 14    # every 16-bit cell value stays below this
 _PLAIN_BLOCK = 16384  # jobs per step of the plain version
 REG_QMAX = 1024       # QMAX up to which every job takes the register route
-WIDE_QMAX = 1024      # QMAX from which a launch counts in WIDE_LAUNCHES
 # the kernel's width classes: the most query columns (qcol) each one
 # takes; wider jobs are class len(CLASS_COLS), the wide route
 CLASS_COLS = (32, 64, 128, 256, 512, 1024)
@@ -51,8 +50,8 @@ _LIB_PATH = _kbuild.BUILD_DIR / "libextend_kernel.so"
 
 # kernel launches since import (or the last reset by the caller); the
 # wrapper adds one per launch and nowhere else, and WIDE_LAUNCHES one more
-# when the launch's rows are 1 kb wide or wider (QMAX >= WIDE_QMAX: the
-# 1 kb reads' bucket; its jobs past REG_QMAX columns take the wide route)
+# when the launch runs the wide route (QMAX > REG_QMAX: the C entry point
+# then launches it for the jobs past REG_QMAX columns)
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
 BUILD_LOG = ""
@@ -143,7 +142,7 @@ def extend_batch(query, target, qlen, tlen, h0, mat, params):
                            + lib.bm_error_string(rc).decode())
     with _lock:
         LAUNCHES += 1
-        WIDE_LAUNCHES += QMAX >= WIDE_QMAX
+        WIDE_LAUNCHES += QMAX > REG_QMAX
     return _fields(out)
 
 

@@ -329,6 +329,14 @@ class MemAligner:
         reads_t = torch.from_numpy(reads).to(self.device)
         lens_t = torch.from_numpy(lens).to(self.device)
         opt = self.opt
+        # the JAX aligner scales its candidate pool with the read bucket
+        # (the next power of two of ceil(L / 192), at most 4096 slots a
+        # read) and keeps it for later batches; -g's compaction schedule
+        # acts on that pool's width
+        need = -(-L // 192)
+        cand = min(self.seed_cfg.cand_pool << (need - 1).bit_length(), 4096)
+        if self.seed_cfg.cand_pool > 0 and cand > self.seed_cfg.cand_pool:
+            self.seed_cfg = replace(self.seed_cfg, cand_pool=cand)
         with self._span("seed_device"):
             if opt.seed_type in (2, 4):
                 ktab_k = 8 if opt.min_seed_len > 8 else 0

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (bwamem_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--save-k1-jobs DIR]
+    python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -9,9 +9,10 @@ Phases (each prints its own lines; any failure exits nonzero):
      probe);
   2. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, exact equality, median of 5 timed runs, with the bound
-     (the larger of bytes over HBM bandwidth and int32 operations over the
-     int32 rate, for the live cells these inputs run; a K1 job that fits
-     16 bits counts half the operations a cell):
+     (the larger of bytes over HBM bandwidth and the DP's integer
+     instructions over the card's issue rate, for the live cells these
+     inputs run; a K1 job that fits 16 bits counts half the instructions
+     a cell):
      K1 at QMAX 192, TMAX 384, 32768 jobs + edge lanes, all four
      (opt_ext, zdrop) variants, and at QMAX 1024, TMAX 2048 (1 kb reads),
      4096 jobs, all four variants; K1 at the -x pacbio object path's
@@ -41,8 +42,7 @@ Phases (each prints its own lines; any failure exits nonzero):
      launch, captured by wrapping extend_kernel.extend_batch: exact
      against the plain version, timed, with its qlen quartiles, live-cell
      share and bound (so too after phase 6, on its launch, and after
-     phase 8, on -x pacbio's 1024 bucket; --save-k1-jobs keeps the three
-     inputs for tools/k1_bench.py);
+     phase 8, on -x pacbio's 1024 bucket);
   5. align the pairs from two files (two chunks of 8192 pairs) through the
      CLI entry point with --device cuda, counting K1 and K2 launches; then
      the first 1024 pairs on the GPU and with --device cpu, whose SAM must
@@ -73,7 +73,6 @@ Needs one CUDA device; exits nonzero without one.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import re
@@ -95,11 +94,15 @@ WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=2048)  # K1 at 1 kb reads' rows
 K3_SHAPES = dict(N=32_768, QMAX=256, TMAX=384)  # --vanilla, 250 bp reads
 K3_VARIANTS = [(100, 0), (100, 100)]  # (w, zdrop); --vanilla keeps -d 0
 K3_WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=1536)
-# the card's rates for the bound: HBM3 bandwidth, and int32 issue of 132
-# SMs x 64 INT32 lanes x 1.98 GHz (H100 SXM)
+# the card's rates for the bound: HBM3 bandwidth, and the integer
+# instructions 132 SMs issue at 1.98 GHz (H100 SXM): four warp schedulers
+# of 32 lanes an SM, one instruction each a clock, whichever pipe takes it
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-OPS_PER_CELL = 12  # int32 operations of one DP cell (M, E, F, H, row max)
+INT_OPS_PER_S = 132 * 128 * 1.98e9
+# a DP cell's 32-bit instructions in the shortest recurrence on Hopper's
+# DPX forms: the score 1, M 1, E 2 (a subtract, then VIADDMNMX.RELU), F 2,
+# H 1 (VIMNMX3.RELU), the row max 1
+OPS_PER_CELL = 8
 N_PAIRS = 16_384
 CHUNK_PAIRS = 8192
 VICTIM_EVERY = 100  # 1% of the pairs: read 2 unseedable, only rescue
@@ -204,9 +207,9 @@ def _device_ms(fn, inner=PROBE_INNER):
 def _bound(nbytes: int, ops: int) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over HBM bandwidth
-    and the int32 operations over the card's int32 rate."""
+    and the integer instructions over the card's issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -224,11 +227,10 @@ def _live_cells(args, rows, opt_ext: bool, w: int):
 
 def _ext_bound(args, rows, params, i16: bool = True) -> dict:
     """K1/K3 bound on these inputs: every live cell (_live_cells) costs
-    OPS_PER_CELL int32 operations; with `i16` (K1), half as many when the
-    job passes K1's 16-bit predicate (extend_kernel.fits_i16), since two
-    such cells share one 32-bit operation. No kernel does a live cell's
-    work in fewer operations, nor moves fewer bytes than its inputs and
-    outputs. Also returns the jobs' 16-bit share (i16_share)."""
+    OPS_PER_CELL 32-bit instructions; with `i16` (K1), half as many when
+    the job passes K1's 16-bit predicate (extend_kernel.fits_i16), since
+    two such cells share one int16x2 instruction. Also returns the jobs'
+    16-bit share (i16_share)."""
     import torch
 
     from bwamem_tpu_torch.ops.kernels.extend_kernel import fits_i16
@@ -376,14 +378,12 @@ def capture_k1():
         extend_kernel.extend_batch = orig
 
 
-def captured_k1(label: str, call, save_dir: str | None = None,
-                timed: bool = True) -> dict:
+def captured_k1(label: str, call, timed: bool = True) -> dict:
     """K1 on the inputs of one captured main-path launch: exact against
     its plain version, timed (median of 5; `timed` False skips it), with
     the job count, the qlen quartiles, the live-cell share (live cells
-    over the rows each job ran times QMAX + 1) and the bound. With
-    save_dir, the inputs go to <save_dir>/<label>.npz (tools/k1_bench.py
-    reads them). Returns the record."""
+    over the rows each job ran times QMAX + 1) and the bound. Returns the
+    record."""
     import numpy as np
     import torch
 
@@ -415,13 +415,6 @@ def captured_k1(label: str, call, save_dir: str | None = None,
           f"exact; kernel {ms} ms, plain {plain_ms} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; 16-bit jobs "
           f"{bound.pop('i16_share'):.4f})", flush=True)
-    if save_dir:
-        os.makedirs(save_dir, exist_ok=True)
-        np.savez_compressed(
-            os.path.join(save_dir, f"{label}.npz"),
-            **{k: a.cpu().numpy() for k, a in zip(
-                ("query", "target", "qlen", "tlen", "h0", "mat"), args)},
-            params=json.dumps(dataclasses.asdict(p)))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
@@ -875,7 +868,7 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     before and read just after; kernels in `need` must have launched. Then
     the first n_head reads with --device cpu, whose SAM must be
     byte-identical to the device run's records of those reads. Returns
-    the launch counts (K1, K1 at rows of 1 kb or more, K2, K3), reads/s
+    the launch counts (K1, K1's wide route, K2, K3), reads/s
     and, with `capture`, the device run's K1 calls (capture_k1) as
     k1_calls."""
     from bwamem_tpu_torch.cli import main
@@ -914,7 +907,7 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     print(f"{tag} ({' '.join(flags) or 'default flags'}) --device {device}: "
           f"{n} reads in {wall:.2f} s wall (index load + setup included) = "
           f"{n / wall:.1f} reads/s; mapped {mapped / n:.4f}; spans {spans}; "
-          f"launches K1 {counts['K1']} (1 kb rows {counts['K1_wide']}), "
+          f"launches K1 {counts['K1']} (wide route {counts['K1_wide']}), "
           f"K2 {counts['K2']}, K3 {counts['K3']}", flush=True)
     if device == "cuda":
         missing = [k for k in need if counts[k] < 1]
@@ -965,7 +958,7 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
     out = {}
     phase("6 long reads (1 kb, default flags)")
     out["long"] = flag_phase(d, "long", "long.fq", heads[0], [],
-                             ("K1", "K1_wide", "K2"), device, capture=True)
+                             ("K1", "K2"), device, capture=True)
     phase("7 --vanilla (250 bp)")
     out["vanilla"] = flag_phase(d, "vanilla", "r250.fq", heads[1],
                                 ["--vanilla"], ("K3",), device)
@@ -1093,15 +1086,7 @@ def _widest(calls):
     return max(calls, key=lambda c: c[0].shape[1])
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description="smoke run of the port on "
-                                 "one NVIDIA GPU")
-    ap.add_argument("--save-k1-jobs", metavar="DIR", default=None,
-                    help="also write the captured K1 launches' inputs "
-                    "to DIR/*.npz (for tools/k1_bench.py)")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1122,7 +1107,7 @@ def main(argv=None) -> int:
     phase("2 kernel vs plain")
     k1 = kernel_phase("cuda")
     k2 = sw_kernel_phase("cuda")
-    k1_wide = kernel_phase("cuda", WIDE_SHAPES)
+    k1_1kb = kernel_phase("cuda", WIDE_SHAPES)
     k2_flt = sw_kernel_phase("cuda", FILTER_SHAPES, variants=[(0, 0)],
                              product=(0, 0), jobs=make_filter_jobs,
                              label="seed filter")
@@ -1152,17 +1137,14 @@ def main(argv=None) -> int:
         phase("4 align")
         launches, _, calls = align_phase(d)
         # the second, warm chunk's launch
-        captured_k1("phase4", calls[min(1, len(calls) - 1)],
-                    args.save_k1_jobs)
+        captured_k1("phase4", calls[min(1, len(calls) - 1)])
 
         phase("5 paired-end align")
         _, sw_launches, _ = pe_align_phase(d)
 
         runs = long_read_phases(d, contigs)
-        captured_k1("phase6", _widest(runs["long"]["k1_calls"]),
-                    args.save_k1_jobs)
-        captured_k1("pacbio1024", _widest(runs["pacbio"]["k1_calls"]),
-                    args.save_k1_jobs)
+        captured_k1("phase6", _widest(runs["long"]["k1_calls"]))
+        captured_k1("pacbio1024", _widest(runs["pacbio"]["k1_calls"]))
 
         phase("9 seeding variants (-u 2, -u 3, -g, -u 4)")
         variant_phases(d)
@@ -1182,10 +1164,10 @@ def main(argv=None) -> int:
              source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
              launches=sw_launches, **k2),
-        dict(name="extend_dense_wide", route="cuda", library_ms=None,
+        dict(name="extend_dense_1kb", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",
-             launches=runs["long"]["K1_wide"], **k1_wide),
+             launches=runs["long"]["K1"], **k1_1kb),
         dict(name="extend_dense_pacbio", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",

@@ -8,7 +8,8 @@ seeds with at most one mismatch), -g (all MEMs) and the default SMEMs.
     of a repeat-rich genome (the JAX package's text walk), and on
     batches past 4096 candidate slots, where the JAX walk compacts its
     lanes (512 reads of a 200 kb and 256 of a 60 kb repeat-rich genome,
-    and the 256 with the compaction off on both sides);
+    the 256 with the compaction off on both sides, and 64 reads of 250 bp,
+    whose pool the JAX aligner scales with the read length);
   * the k-mer table equals the JAX table, and the jump-start through it
     gives the same seeds as the walk step by step;
   * the CLI: SAM identical to the JAX CLI's apart from @PG for SE -u 2,
@@ -141,35 +142,39 @@ def repeats200():
     return g, jidx, tidx
 
 
-@pytest.mark.parametrize("world,n_reads,schedule", [
-    ("repeats200", 512, "default"), ("repeats", 256, "default"),
-    ("repeats", 256, ())], ids=["200kb_512", "60kb_256", "60kb_256_off"])
-def test_mem_mode_big_batch_matches_uncompacted_jax(world, n_reads, schedule,
-                                                    request, tmp_path):
-    """-g on a batch of more than 4096 candidate slots (the JAX pool is
+@pytest.mark.parametrize("world,n_reads,read_len,schedule", [
+    ("repeats200", 512, 150, "default"), ("repeats", 256, 150, "default"),
+    ("repeats", 256, 150, ()), ("repeats", 64, 250, "default")],
+    ids=["200kb_512", "60kb_256", "60kb_256_off", "60kb_64x250bp"])
+def test_mem_mode_big_batch_matches_uncompacted_jax(world, n_reads, read_len,
+                                                    schedule, request,
+                                                    tmp_path):
+    """-g on a batch of at least 4096 candidate slots (the JAX pool is
     bucket_count(reads) x cand_pool), where the JAX package's backward
     walk compacts its live lanes at its r1_schedule points and so compares
     a lane with another neighbour in the early kill, which decides the
-    qbeg of a nested MEM that -g keeps: the port, given the JAX run's
-    cand_pool and schedule, gives the same seeds; with the schedule off
-    (()), both walk uncompacted. A fresh pool store keeps the JAX
-    aligner's pool sizes from other tests' learning."""
+    qbeg of a nested MEM that -g keeps: the port, with the JAX run's
+    schedule, sizes its pool as the JAX aligner does (cand_pool scaled
+    with the read bucket: 64 slots a read at 250 bp, so 64 reads reach
+    4096) and gives the same seeds; with the schedule off (()), both walk
+    uncompacted. A fresh pool store keeps the JAX aligner's pool sizes
+    from other tests' learning."""
     from dataclasses import replace
 
     from bwamem_tpu.pipeline.poolstore import PoolStore
     from bwamem_tpu_torch.utils.shapes import bucket_count
 
     g, jidx, tidx = request.getfixturevalue(world)
-    seqs = _sample(g, n_reads, 150, 0.01, 3)
+    seqs = _sample(g, n_reads, read_len, 0.01, 3)
     jal, tal = _aligners(jidx, tidx, re_seed=True)
     jal.pool_store = PoolStore(str(tmp_path / "pools.json"))
     if schedule != "default":
         jal.seed_cfg = replace(jal.seed_cfg, r1_schedule=schedule)
+        tal.seed_cfg = replace(tal.seed_cfg, r1_schedule=schedule)
     want = jal.seed_batch(seqs)
-    tal.seed_cfg = replace(tal.seed_cfg, cand_pool=jal.seed_cfg.cand_pool,
-                           r1_schedule=jal.seed_cfg.r1_schedule)
-    assert bucket_count(n_reads) * jal.seed_cfg.cand_pool >= 4096
     got = tal.seed_batch(seqs)
+    assert tal.seed_cfg.cand_pool == jal.seed_cfg.cand_pool
+    assert bucket_count(n_reads) * tal.seed_cfg.cand_pool >= 4096
     assert sum(map(len, got)) > 4096
     assert got == want
 

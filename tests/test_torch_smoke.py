@@ -69,17 +69,15 @@ def world(tmp_path_factory):
     return d
 
 
-def test_world_and_align_phases_on_cpu(world, tmp_path):
+def test_world_and_align_phases_on_cpu(world):
     launches, rate, calls = chip_smoke.align_phase(world, device="cpu",
                                                    chunk_reads=128)
     assert launches == 0 and rate > 0  # CPU tensors never launch K1
     # every K1 call was captured (300 reads, 128 a chunk); the second
-    # one's inputs replay exact against the plain version and are saved
+    # one's inputs replay exact against the plain version
     assert len(calls) == 3
-    rec = chip_smoke.captured_k1("phase4", calls[1], str(tmp_path),
-                                 timed=False)
+    rec = chip_smoke.captured_k1("phase4", calls[1], timed=False)
     assert rec["max_abs_err"] == 0 and rec["bound_ms"] > 0
-    assert (tmp_path / "phase4.npz").exists()
 
 
 def test_pe_align_phase_on_cpu(world, monkeypatch):
