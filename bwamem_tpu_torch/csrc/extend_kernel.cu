@@ -20,7 +20,7 @@
 //
 // Design (three small kernels first bin the jobs by width class, then
 // 16-bit jobs first, then by rows, into a job order whose entries carry
-// kFits16 where the wrapper's fits_i16 admits the job; see job_bin):
+// kFits16 where the wrapper's fits_i16 admits the job; see Binner):
 //   * Work follows each job's own width. A job of qcol = min(qlen, QMAX)
 //     query columns takes a group of G lanes, each holding a strip of S
 //     columns in registers, with (S, G) the smallest class that covers
@@ -87,7 +87,13 @@
 #include <mutex>
 #include <type_traits>
 
+#include "job_bins.cuh"
+
 namespace {
+
+using jobbins::class_G;
+using jobbins::class_S;
+using jobbins::kFits16;
 
 constexpr int kNeg = -0x40000000;
 constexpr unsigned kFull = 0xffffffffu;
@@ -101,14 +107,7 @@ constexpr int kKeyBits = 11;  // column bits of the packed row-max key
 constexpr long long kBigScore = 1LL << 20;
 
 // (S, G) of width classes 0..5 (G * S is the most query columns, qcol,
-// a job of the class has): (4, 8), (8, 8), (8, 16), (8, 32), (16, 32),
-// (32, 32)
-__host__ __device__ constexpr int class_S(int c) {
-  return c == 0 ? 4 : c <= 3 ? 8 : c == 4 ? 16 : 32;
-}
-__host__ __device__ constexpr int class_G(int c) {
-  return c <= 1 ? 8 : c == 2 ? 16 : 32;
-}
+// a job of the class has): job_bins.cuh's class_S, class_G
 __host__ __device__ constexpr int class_min_blocks(int S) {  // registers: 65536 / (128 * this)
   return S <= 4 ? 8 : S <= 8 ? 6 : S <= 16 ? 4 : 3;
 }
@@ -178,7 +177,6 @@ struct Job {
 
 // an entry of the job order: the job's index, with kFits16 set
 // when the job may run on 16-bit cells (fits_i16); -1 for no job
-constexpr int kFits16 = 1 << 30;
 
 __device__ __forceinline__ void job_init(const Params& p, int ent, Job& J) {
   const bool has = ent >= 0;
@@ -841,15 +839,10 @@ extend_wide_kernel(Params p) {
 }
 
 // ---- the job order, built on the device before the DP kernels ----
-// A job's bin: its width class (widest first), then 16-bit jobs first,
-// then its rows in powers of two (most first). The persistent warps take
-// the jobs in bin order, so that the jobs a warp runs side by side are
-// alike and the longest start first. (ops/kernels/extend_kernel.py
-// job_bins states the same rule in torch ops for the tests.)
-constexpr int kRowBins = 22;  // rows 0, 1, 2-3, 4-7, ..., 2^20 or more
-constexpr int kBins = (kWide + 1) * 2 * kRowBins;
-constexpr int kWorkHeader = 1024;  // ints of the workspace before the order
-static_assert(2 * kBins + kWide + 1 <= kWorkHeader, "workspace header");
+// (job_bins.cuh): the persistent warps take the jobs in bin order, so
+// that the jobs a warp runs side by side are alike and the longest start
+// first.
+static_assert(kWide == jobbins::kRegClasses, "K1's wide route is class 6");
 
 // the most columns a strip group of a launch of width QMAX spans: the
 // width class that holds QMAX (1024 past it)
@@ -874,86 +867,26 @@ __device__ Prep prep_of(const int* mat, int margin) {
   return r;
 }
 
-// job j's bin, and whether it takes 16-bit cells: the wrapper's fits_i16
-__device__ __forceinline__ int job_bin(const Params& p, const Prep& pr, int j,
-                                       bool& fits) {
-  const int qcol = min(max(p.qlen[j], 0), p.QMAX);
-  const int rows = min(max(p.tlen[j], 0), p.TMAX);
-  const int h0 = p.h0[j];
-  fits = h0 >= 0 && pr.amax <= 1 && pr.amin >= -128 &&
-         (long long)h0 + (long long)pr.amax * rows + pr.margin < (1LL << 14);
-  int c = 0;
-  while (c < kWide && qcol > class_S(c) * class_G(c)) ++c;
-  const int rb = rows == 0 ? 0 : min(32 - __clz(rows), kRowBins - 1);
-  return ((kWide - c) * 2 + (fits ? 0 : 1)) * kRowBins + (kRowBins - 1 - rb);
-}
-
-__global__ void prep_count_kernel(Params p, int margin, int* cnt) {
-  __shared__ int hist[kBins];
-  __shared__ Prep pr;
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) hist[b] = 0;
-  if (threadIdx.x == 0) pr = prep_of(p.mat, margin);
-  __syncthreads();
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < p.N;
-       j += gridDim.x * blockDim.x) {
-    bool fits;
-    atomicAdd(&hist[job_bin(p, pr, j, fits)], 1);
+// K1's binner (job_bins.cuh): a job's width class by its qcol, and
+// whether it takes 16-bit cells: the wrapper's fits_i16
+struct Binner {
+  Params p;
+  int margin;
+  Prep pr;
+  int N;
+  __device__ void prepare() { pr = prep_of(p.mat, margin); }
+  __device__ int bin(int j, bool& fits) const {
+    const int qcol = min(max(p.qlen[j], 0), p.QMAX);
+    const int rows = min(max(p.tlen[j], 0), p.TMAX);
+    const int h0 = p.h0[j];
+    fits = h0 >= 0 && pr.amax <= 1 && pr.amin >= -128 &&
+           (long long)h0 + (long long)pr.amax * rows + pr.margin <
+               (1LL << 14);
+    return jobbins::bin_of(jobbins::class_of(qcol), fits, rows);
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x)
-    if (hist[b] != 0) atomicAdd(&cnt[b], hist[b]);
-}
+};
 
-// one thread: each bin's first slot of the order, and each class's jobs
-__global__ void prep_scan_kernel(const int* cnt, int* cursor, int* counts) {
-  int per_class[kWide + 1] = {};
-  int off = 0;
-  for (int b = 0; b < kBins; ++b) {
-    cursor[b] = off;
-    off += cnt[b];
-    per_class[kWide - b / (2 * kRowBins)] += cnt[b];
-  }
-  for (int c = 0; c <= kWide; ++c) counts[c] = per_class[c];
-}
-
-// each job into a slot of its bin, flagged kFits16 where it fits 16 bits
-// (the order within a bin varies from run to run; no result depends on it)
-__global__ void prep_scatter_kernel(Params p, int margin, int* cursor,
-                                    int* order) {
-  __shared__ Prep pr;
-  if (threadIdx.x == 0) pr = prep_of(p.mat, margin);
-  __syncthreads();
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < p.N;
-       j += gridDim.x * blockDim.x) {
-    bool fits;
-    const int b = job_bin(p, pr, j, fits);
-    order[atomicAdd(&cursor[b], 1)] = j | (fits ? kFits16 : 0);
-  }
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
-// persistent grid: as many blocks as the card holds at once, at most one
-// warp per job
-template <typename F>
-int grid_for(F kernel, int threads, size_t smem, int N, int wpb) {
-  int per_sm = 1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem) != cudaSuccess ||
-      per_sm < 1)
-    per_sm = 1;
-  const int need = (N + wpb - 1) / wpb;
-  return max(1, min(need, per_sm * sm_count()));
-}
+using jobbins::grid_for;
 
 template <int S, bool OPT>
 cudaError_t launch_s(const Params& p, cudaStream_t st) {
@@ -1069,26 +1002,21 @@ int bm_extend_dense(const void* q, const void* t, const void* qlen,
   p.a = a;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  // the job order: count the bins, their starts, scatter
-  int* cnt = static_cast<int*>(work);
-  int* cursor = cnt + kBins;
-  int* counts = cnt + 2 * kBins;
-  int* order = cnt + kWorkHeader;
-  p.order = order;
-  p.counts = counts;
-  // fits_i16's margin; one past 2^14 admits no job
+  // the job order (job_bins.cuh); fits_i16's margin, one past 2^14
+  // admitting no job
   const int oe = o_del + e_del > o_ins + e_ins ? o_del + e_del : o_ins + e_ins;
   const long long m_ll =
       (long long)e_ins * (strip_cols(QMAX) + 1) + oe + end_bonus;
-  const int margin = m_ll < 0 ? 0 : m_ll > (1 << 14) ? (1 << 14) : (int)m_ll;
-  const int pb = max(1, min((N + 255) / 256, 4 * sm_count()));
-  cudaError_t err = cudaMemsetAsync(cnt, 0, kBins * sizeof(int), st);
+  Binner bn;
+  bn.p = p;
+  bn.margin = m_ll < 0 ? 0 : m_ll > (1 << 14) ? (1 << 14) : (int)m_ll;
+  bn.N = N;
+  int *counts, *order;
+  cudaError_t err = jobbins::build_order(bn, static_cast<int*>(work), st,
+                                         &counts, &order);
   if (err != cudaSuccess) return (int)err;
-  prep_count_kernel<<<pb, 256, 0, st>>>(p, margin, cnt);
-  prep_scan_kernel<<<1, 1, 0, st>>>(cnt, cursor, counts);
-  prep_scatter_kernel<<<pb, 256, 0, st>>>(p, margin, cursor, order);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  p.order = order;
+  p.counts = counts;
   // one kernel per strip width and the wide route's, widest first, each
   // on its own stream forked from and joined back into `st`, so that the
   // narrow classes fill the card while the wide ones finish

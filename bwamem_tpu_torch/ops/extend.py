@@ -52,14 +52,16 @@ def extend_batch_auto(query, target, qlen, tlen, h0, mat, params):
     JAX twin's rule (bwamem_tpu/ops/extend.py extend_batch_auto): opt_ext
     with a band window round128(2w+3) narrower than the dense row
     round128(QMAX+1) — long reads under --vanilla — as long as the window
-    fits K3 (at most 1024 lanes, w <= 509); everything else takes the
+    fits K3 (at most 1024 lanes, w <= 509) and the query its shared
+    memory (QMAX <= extend_banded.qmax_limit(w)); everything else takes the
     dense kernel K1, which applies the same band as a mask. CPU tensors
     run the dense plain version, as the JAX package's CPU path runs its
     lax twin; both give the same result."""
     wp_band = extend_banded.window_lanes(params.w)
     if (query.is_cuda and params.opt_ext
             and wp_band < _round128(query.shape[1] + 1)
-            and wp_band <= extend_banded.WP_LIMIT):
+            and wp_band <= extend_banded.WP_LIMIT
+            and query.shape[1] <= extend_banded.qmax_limit(params.w)):
         return extend_banded.extend_batch_banded(query, target, qlen, tlen,
                                                  h0, mat, params)
     return extend_kernel.extend_batch(query, target, qlen, tlen, h0, mat,

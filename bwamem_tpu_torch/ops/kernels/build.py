@@ -3,7 +3,8 @@ wrappers share.
 
 Each kernel source in `csrc/` is compiled for sm_90a into its own shared
 library with a plain C interface, in the package's `_build/` directory,
-on first use (and again when the source is newer than the library). The
+on first use (and again when the source, or a header beside it, is newer
+than the library). The
 wrappers load the library with ctypes.
 """
 from __future__ import annotations
@@ -33,9 +34,12 @@ def nvcc() -> str:
 
 def build(source: Path, lib: Path) -> tuple[float, str | None]:
     """Compile `source` into `lib` if the library is missing or older than
-    its source. Returns (seconds spent compiling, the compiler's output
-    with its register and spill report); (0.0, None) when up to date."""
-    if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
+    its source or a header in `csrc/` (the kernels share job_bins.cuh).
+    Returns (seconds spent compiling, the compiler's output with its
+    register and spill report); (0.0, None) when up to date."""
+    newest = max(p.stat().st_mtime
+                 for p in [source, *source.parent.glob("*.cuh")])
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return 0.0, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")

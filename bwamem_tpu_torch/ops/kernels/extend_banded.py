@@ -3,7 +3,10 @@ WP = round128(2w + 3) lanes: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
 The kernel (csrc/extend_banded.cu) replaces the Pallas TPU kernel
-bwamem_tpu/ops/pallas/extend_banded.py:_make_banded_kernel. It is compiled
+bwamem_tpu/ops/pallas/extend_banded.py:_make_banded_kernel. It first
+orders the alignments on the device (those that take 16-bit cells,
+fits_i16, first, then by rows) into a workspace this wrapper allocates,
+and runs two a warp on 16-bit cells where both fit. It is compiled
 with nvcc for sm_90a into the package's `_build/` directory on first use
 (ops/kernels/build.py) and called through a plain C entry point with
 ctypes. Its contract is the dense kernel's with opt_ext (the band applied
@@ -25,10 +28,18 @@ import torch
 
 from . import build as _kbuild
 from .build import check as _check
-from .extend_kernel import NEG, _fields
+from .extend_kernel import (_SMEM_BYTES, FITS16, I16_LIMIT, NEG, NEG16,
+                            WORK_HEADER, _fields)
 
 _PLAIN_BLOCK = 16384  # jobs per step of the plain version
 WP_LIMIT = 1024       # window lanes the kernel holds in registers
+
+
+def qmax_limit(w: int) -> int:
+    """The widest query the kernel takes at band w: one warp's two score
+    profiles (5 bytes a column of QMAX + w + WP/32 + 8, rounded to 4)
+    must fit a block's shared memory."""
+    return _SMEM_BYTES // 10 // 4 * 4 - 3 - int(w) - window_lanes(w) // 32 - 8
 
 SOURCE = _kbuild.CSRC / "extend_banded.cu"
 _LIB_PATH = _kbuild.BUILD_DIR / "libextend_banded.so"
@@ -65,7 +76,7 @@ def _load():
             build()
             lib = ctypes.CDLL(str(_LIB_PATH))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.bm_extend_banded.argtypes = [vp] * 7 + [ci] * 11 + [vp]
+            lib.bm_extend_banded.argtypes = [vp] * 8 + [ci] * 11 + [vp]
             lib.bm_extend_banded.restype = ci
             lib.bm_banded_error_string.argtypes = [ci]
             lib.bm_banded_error_string.restype = ctypes.c_char_p
@@ -77,8 +88,9 @@ def extend_batch_banded(query, target, qlen, tlen, h0, mat, params):
     """Banded ksw_extend2 (opt_ext semantics) over N alignments.
 
     query (N, QMAX) and target (N, TMAX) base codes 0..4 (int8 on CUDA);
-    qlen, tlen, h0 (N,) int32 (h0 > 0 for real lanes); mat (5, 5) int32;
-    params: ExtendParams (opt_ext is implied; w sets the window). Returns
+    qlen, tlen, h0 (N,) int32 (h0 > 0 for real lanes, qlen <= QMAX);
+    mat (5, 5) int32; params: ExtendParams (opt_ext is implied; w sets
+    the window; QMAX at most qmax_limit(w)). Returns
     the dense kernel's dict of (N,) int32 tensors: score, qle, tle,
     gscore, gtle, max_off."""
     global LAUNCHES
@@ -104,15 +116,21 @@ def extend_batch_banded(query, target, qlen, tlen, h0, mat, params):
         raise ValueError(f"band w={p.w}: the window of "
                          f"{window_lanes(p.w)} lanes is outside "
                          f"128..{WP_LIMIT}")
+    if QMAX > qmax_limit(p.w):
+        raise ValueError(f"QMAX {QMAX} past {qmax_limit(p.w)} at w={p.w}")
     out = torch.empty((N, 6), dtype=torch.int32, device=query.device)
     if N == 0:
         return _fields(out)
+    if N >= FITS16:
+        raise ValueError(f"{N} jobs: at most {FITS16 - 1} a launch")
+    work = torch.empty(N + WORK_HEADER, dtype=torch.int32,
+                       device=query.device)
     lib = _load()
     stream = torch.cuda.current_stream(query.device).cuda_stream
     rc = lib.bm_extend_banded(
         query.data_ptr(), target.data_ptr(), qlen.data_ptr(),
-        tlen.data_ptr(), h0.data_ptr(), mat.data_ptr(), out.data_ptr(),
-        N, QMAX, TMAX, int(p.o_del), int(p.e_del), int(p.o_ins),
+        tlen.data_ptr(), h0.data_ptr(), mat.data_ptr(), work.data_ptr(),
+        out.data_ptr(), N, QMAX, TMAX, int(p.o_del), int(p.e_del), int(p.o_ins),
         int(p.e_ins), int(p.w), int(p.zdrop), int(p.end_bonus),
         int(p.max_mat), stream)
     if rc != 0:
@@ -123,18 +141,37 @@ def extend_batch_banded(query, target, qlen, tlen, h0, mat, params):
     return _fields(out)
 
 
-def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params):
+def fits_i16(tlen, h0, mat, params, QMAX: int, TMAX: int):
+    """The per-job condition under which the kernel runs an alignment on
+    16-bit cells: extend_kernel.fits_i16 with the window's WP lanes in
+    place of the strip group's columns (F's running term adds e_ins per
+    window lane). Returns an (N,) bool tensor, with no host sync."""
+    p = params
+    m = mat.to(device=h0.device, dtype=torch.int64)
+    amax = m.max().clamp(min=0)
+    rows = tlen.to(torch.int64).clamp(0, TMAX)
+    h = h0.to(torch.int64)
+    top = (h + amax * rows + p.e_ins * (window_lanes(p.w) + 1)
+           + max(p.o_del + p.e_del, p.o_ins + p.e_ins) + p.end_bonus)
+    return ((h >= 0) & (top < I16_LIMIT) & (amax <= 1)
+            & (m.min() >= -128))
+
+
+def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params,
+                              dp_dtype=torch.int64):
     """Plain PyTorch version of the kernel: the Pallas kernel's window row
     loop, one target row for all alignments per step; lane v of row i is
     column u = i + v - w, the diagonal is the same lane of the previous
     window, E comes from the lane to its right, F is an exclusive running
     max along the window (torch.cummax). Same contract as
     extend_batch_banded, plus `rows`: the (N,) count of target rows each
-    alignment ran (its DP work)."""
+    alignment ran (its DP work). dp_dtype torch.int16 holds the DP cells
+    in 16 bits with NEG16 as F's sentinel, as the kernel's 16-bit route
+    does (tests hold it to the int64 version where fits_i16 admits)."""
     N = query.shape[0]
     if N > _PLAIN_BLOCK:  # bound the temporaries
         parts = [extend_batch_banded_plain(*(a[i:i + _PLAIN_BLOCK] for a in (
-            query, target, qlen, tlen, h0)), mat, params)
+            query, target, qlen, tlen, h0)), mat, params, dp_dtype)
             for i in range(0, N, _PLAIN_BLOCK)]
         return {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
     p = params
@@ -148,7 +185,9 @@ def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params):
     qlen = qlen.to(torch.int64)[:, None]
     tlen = tlen.to(torch.int64)
     h0 = h0.to(torch.int64)
-    matf = mat.to(device=dev, dtype=torch.int64).reshape(-1)
+    dt = dp_dtype
+    neg = NEG16 if dt == torch.int16 else NEG
+    matf = mat.to(device=dev, dtype=dt).reshape(-1)
     oe_del = p.o_del + p.e_del
     oe_ins = p.o_ins + p.e_ins
     v = torch.arange(WP, device=dev, dtype=torch.int64)[None, :]
@@ -166,15 +205,15 @@ def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params):
     u0 = v - w - 1
     H = (h0[:, None] - p.o_ins - p.e_ins * u0).clamp(min=0)
     H = torch.where(u0 == 0, h0[:, None], H)
-    H = torch.where((u0 >= 0) & (u0 <= qlen), H, 0)
+    H = torch.where((u0 >= 0) & (u0 <= qlen), H, 0).to(dt)
     E = torch.zeros_like(H)
     four = torch.full((N, 1), 4, dtype=torch.int64, device=dev)
     qi0 = u0[0]
     qwin = torch.where(((qi0 >= 0) & (qi0 < QMAX))[None, :],
                        q[:, qi0.clamp(0, QMAX - 1)], 4)
-    eu = p.e_ins * v
-    zcol = torch.zeros((N, 1), dtype=torch.int64, device=dev)
-    negcol = torch.full((N, 1), NEG, dtype=torch.int64, device=dev)
+    eu = (p.e_ins * v).to(dt)
+    zcol = torch.zeros((N, 1), dtype=dt, device=dev)
+    negcol = torch.full((N, 1), neg, dtype=dt, device=dev)
 
     best = h0.clone()
     qle = torch.zeros_like(h0)
@@ -199,7 +238,7 @@ def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params):
         Mx = torch.where(live, M, 0)
         Exl = torch.where(live, Ex, 0)
 
-        G = torch.where(u <= 0, NEG, (Mx - oe_ins).clamp(min=0) + eu)
+        G = torch.where(u <= 0, neg, (Mx - oe_ins).clamp(min=0) + eu)
         Gc = torch.cummax(G, dim=1).values
         F = (torch.cat([negcol, Gc[:, :-1]], dim=1) - eu + p.e_ins
              ).clamp(min=0)
@@ -207,18 +246,19 @@ def extend_batch_banded_plain(query, target, qlen, tlen, h0, mat, params):
 
         Hn = torch.maximum(torch.maximum(Mx, Exl), F)
         b0 = (h0 - (p.o_del + p.e_del * (i + 1))).clamp(min=0)
-        Hn = torch.where(u == 0, b0[:, None], Hn)
+        Hn = torch.where(u == 0, b0[:, None].to(dt), Hn)
         En = torch.maximum(Exl - p.e_del, (Mx - oe_del).clamp(min=0))
 
         # row max over live lanes, tie -> LARGEST u; mj -1 when none live
         Ht = torch.where(live, Hn, -1)
-        rowmax = Ht.max(dim=1).values
+        rowmax = Ht.max(dim=1).values.to(torch.int64)
         lane = torch.where(Ht == rowmax[:, None], v, -1).max(dim=1).values
         mj = torch.where(rowmax >= 0, lane + (i - w), -1)
 
         # H(i, qlen); once the band has passed the query end, the dense
         # row's stored 0
-        h_end = torch.where(u == qlen, Hn, NEG).max(dim=1).values
+        h_end = torch.where(u == qlen, Hn, neg).max(dim=1).values.to(
+            torch.int64)
         h_end = torch.where(i - w > qlen[:, 0], 0, h_end)
         g_upd = active & (h_end >= gscore) & (i + w_lane + 1 >= qlen[:, 0])
         gscore = torch.where(g_upd, h_end, gscore)

@@ -31,7 +31,9 @@ are left out; its converged result is the untruncated one computed here.
 Its staged lane compaction of the round-1 backward walk changes which
 lane a lane is compared with in the early kill, and mode "mem" keeps
 what the kill froze, so there the port follows the same schedule on the
-width of the JAX pool (cand_pool slots a read, `pool_reads` reads).
+width of the JAX pool (cand_pool slots a read, `pool_reads` reads), grown
+as the JAX overflow retry grows it when the round-1 candidates overflow
+it (grown_cand_pool).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from ..index.device import DeviceFMIndex
 from . import fm as fmops
 
 BIG = 0x3FFFFFFF
+CAND_POOL_CAP = 4096  # the JAX aligner's largest cand_pool (POOL_CAPS)
 # how many walk trips run between checks of the all-dead exit (each check
 # is one device->host sync)
 _EXIT_CHECK = 4
@@ -512,7 +515,10 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     aligner pads a batch to bucket_count(B)); B by default. Returns flat
     seed arrays sorted by (read, qend, SA rank) — or, with the re-seed
     rounds (cfg.reseed in mode "smem"), by (read, qbeg, qend, SA rank):
-    read_id, qbeg, qend, rbeg (doubled coordinates), n_occ."""
+    read_id, qbeg, qend, rbeg (doubled coordinates), n_occ; and
+    cand_pool, an int: the candidate slots a read of the pool the mode
+    "mem" walk compacted on (cfg.cand_pool, or the JAX overflow retry's
+    grown_cand_pool when the round-1 candidates overflow it)."""
     if cfg.mode not in ("smem", "mem", "fwdmem"):
         raise ValueError(f"unknown seeding mode {cfg.mode!r}")
     reads = reads.to(torch.int32)
@@ -540,6 +546,9 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     end = torch.arange(NP, dtype=torch.int32, device=dev).expand(B, NP)
     idx, (start, end, k, s) = _compact(emit, start, end, k, s)
     rid = (idx // NP).to(torch.int32)
+    cand_pool = cfg.cand_pool
+    if cfg.mode == "mem":
+        cand_pool = grown_cand_pool(idx.shape[0], pool_reads or B, cand_pool)
     if cfg.mode == "fwdmem":
         # forward-only MEMs: no left extension, the segments are disjoint
         qbeg = start
@@ -551,7 +560,7 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         qbeg, k, s = _backward_pass(
             fm, reads, rid, start, k, s, text_walk=mem and L >= 384,
             schedule=cfg.r1_schedule if mem else (),
-            pool_width=(pool_reads or B) * cfg.cand_pool)
+            pool_width=(pool_reads or B) * cand_pool)
         if cfg.mode == "mem":
             keep = _dup_filter(qbeg, end, rid, s, cfg.min_seed_len)
         else:
@@ -604,7 +613,25 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         perm = torch.argsort(key, stable=True)
         rid, qbeg, end, k, s = (a[perm] for a in (rid, qbeg, end, k, s))
         keep = torch.ones_like(rid, dtype=torch.bool)
-    return _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
+    out = _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
+    out["cand_pool"] = cand_pool
+    return out
+
+
+def grown_cand_pool(c_need: int, pool_reads: int, cand_pool: int) -> int:
+    """The cand_pool the JAX aligner seeds with after its round-1
+    candidates (c_need of them) overflow its pool of pool_reads x
+    cand_pool slots (bwamem_tpu/pipeline/aligner.py's overflow retry):
+    m = ceil(c_need / pool) > 1 grows cand_pool by the power of two
+    2^bit_length(max(m - 1, 1)), at most to CAND_POOL_CAP. c_need does
+    not depend on the pool, so the grown pool holds every candidate and
+    a second retry never grows it again; at the cap the JAX aligner
+    splits the batch instead, which the port does not follow."""
+    slots = pool_reads * cand_pool
+    m = -(-c_need // slots) if slots > 0 else 1
+    if m <= 1 or cand_pool >= CAND_POOL_CAP:
+        return cand_pool
+    return min(cand_pool << max(m - 1, 1).bit_length(), CAND_POOL_CAP)
 
 
 def bowtie_seed_batch(fm: DeviceFMIndex, reads, lens, seed_len: int,

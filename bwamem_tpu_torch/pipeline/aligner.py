@@ -351,6 +351,11 @@ class MemAligner:
                 out = smem_seed_batch(self.fm, reads_t, lens_t,
                                       self.seed_cfg,
                                       pool_reads=bucket_count(B))
+                # -g: the pool its round-1 candidates grew, kept for later
+                # batches as the JAX aligner keeps its retry's
+                cand = out.pop("cand_pool")
+                if cand != self.seed_cfg.cand_pool:
+                    self.seed_cfg = replace(self.seed_cfg, cand_pool=cand)
             host = {k: v.cpu().numpy() for k, v in out.items()}
         self.stats["n_seeds"] += len(host["rbeg"])
         bounds = np.searchsorted(host["read_id"], np.arange(B + 1))

@@ -11,8 +11,8 @@ Phases (each prints its own lines; any failure exits nonzero):
      paths' shapes, exact equality, median of 5 timed runs, with the bound
      (the larger of bytes over HBM bandwidth and the DP's integer
      instructions over the card's issue rate, for the live cells these
-     inputs run; a K1 job that fits 16 bits counts half the instructions
-     a cell):
+     inputs run; a job that the kernel's own 16-bit predicate admits,
+     K1's, K2's or K3's fits_i16, counts half the instructions a cell):
      K1 at QMAX 192, TMAX 384, 32768 jobs + edge lanes, all four
      (opt_ext, zdrop) variants, and at QMAX 1024, TMAX 2048 (1 kb reads),
      4096 jobs, all four variants; K1 at the -x pacbio object path's
@@ -20,7 +20,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      2048, 4096 jobs each) with its scoring (-B 1, -O 1, -E 1, no
      clipping bonus); K1 in one launch spanning every width class and
      its wide route with its edge lanes (make_mixed_jobs), all four
-     variants; K2 at QMAX 192, TMAX 768, 4096 jobs + edge lanes,
+     variants; K1's wide route alone at QMAX 4096, TMAX 4352, 512 jobs
+     (timed; no main path reaches it); K2 at QMAX 192, TMAX 768, 4096
+     jobs + edge lanes,
      rev_skip 0/19 x minsc 0/19 (the plain version timed on the
      main-path variant, rev_skip 19 and minsc 19, only), and at the seed
      filter's 200 x 200 windows with rev_skip 0 and minsc 0, 65536 jobs
@@ -46,7 +48,11 @@ Phases (each prints its own lines; any failure exits nonzero):
   5. align the pairs from two files (two chunks of 8192 pairs) through the
      CLI entry point with --device cuda, counting K1 and K2 launches; then
      the first 1024 pairs on the GPU and with --device cpu, whose SAM must
-     be byte-identical (apart from @PG);
+     be byte-identical (apart from @PG); then K2 on the inputs of the
+     second chunk's rescue launch, captured as K1's are (capture_calls):
+     exact, timed, with its qlen quartiles, live-cell and 16-bit shares
+     and bound (so too after phase 8, on the seed filter's launches of
+     phase 6 and -x pacbio, and K3 on phase 7's launch);
   6. 4096 SE reads of 1 kb (utils/simgenome.simulate_reads: 1%
      substitutions, 0.2% insertions, 0.2% deletions) at the default
      flags in one chunk: the per-seed SW filter on K2, the extension on
@@ -81,7 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import ExitStack, contextmanager
 
 GENOME_LEN = 4_600_000
 N_READS = 32_768
@@ -91,6 +97,8 @@ N_COMPARE = 1024
 KERNEL_SHAPES = dict(N=32_768, QMAX=192, TMAX=384)
 VARIANTS = [(False, 0), (False, 100), (True, 0), (True, 100)]
 WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=2048)  # K1 at 1 kb reads' rows
+# K1's wide route (rows past 1024 columns; on no main path): QMAX 4096
+K1_WIDE_ROUTE_SHAPES = dict(N=512, QMAX=4096, TMAX=4352, tail=256)
 K3_SHAPES = dict(N=32_768, QMAX=256, TMAX=384)  # --vanilla, 250 bp reads
 K3_VARIANTS = [(100, 0), (100, 100)]  # (w, zdrop); --vanilla keeps -d 0
 K3_WIDE_SHAPES = dict(N=4096, QMAX=1024, TMAX=1536)
@@ -225,24 +233,53 @@ def _live_cells(args, rows, opt_ext: bool, w: int):
     return rows.long() * cols
 
 
-def _ext_bound(args, rows, params, i16: bool = True) -> dict:
+def _ext_bound(args, rows, params, kernel: str = "K1") -> dict:
     """K1/K3 bound on these inputs: every live cell (_live_cells) costs
-    OPS_PER_CELL 32-bit instructions; with `i16` (K1), half as many when
-    the job passes K1's 16-bit predicate (extend_kernel.fits_i16), since
-    two such cells share one int16x2 instruction. Also returns the jobs'
-    16-bit share (i16_share)."""
+    OPS_PER_CELL 32-bit instructions, half as many when the job passes
+    the kernel's own 16-bit predicate (extend_kernel.fits_i16 for K1,
+    extend_banded.fits_i16 for K3), since two such cells share one
+    int16x2 instruction. Also returns the jobs' 16-bit share
+    (i16_share)."""
     import torch
 
-    from bwamem_tpu_torch.ops.kernels.extend_kernel import fits_i16
+    from bwamem_tpu_torch.ops.kernels import extend_banded, extend_kernel
 
+    fits_i16 = (extend_banded if kernel == "K3" else extend_kernel).fits_i16
     q, t, ql, tl, h0, mat = args
     cells = _live_cells(args, rows, params.opt_ext, params.w)
-    ok = (fits_i16(tl, h0, mat, params, q.shape[1], t.shape[1]) if i16
-          else torch.zeros_like(cells, dtype=torch.bool))
+    ok = fits_i16(tl, h0, mat, params, q.shape[1], t.shape[1])
     ops = int(torch.where(ok, cells * (OPS_PER_CELL // 2),
                           cells * OPS_PER_CELL).sum())
     nbytes = q.numel() + t.numel() + 3 * 4 * len(ql) + 100 + 6 * 4 * len(ql)
     return dict(_bound(nbytes, ops), i16_share=float(ok.float().mean()))
+
+
+def _sw_bound(q, t, ql, tl, mat, want, gaps, rev_skip: int) -> dict:
+    """K2 bound on these inputs: the forward sweep's cells (every row of
+    the target times the query's columns) and the reverse sweep's (the
+    rows from te back to tb, or to row 0 when no start was found, times
+    qe + 1, for the jobs that run it), OPS_PER_CELL 32-bit instructions
+    each, half as many for a job swalign_kernel.fits_i16 admits. Also
+    returns the 16-bit share (i16_share) and the live cells (live)."""
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import swalign_kernel
+
+    QMAX, TMAX = q.shape[1], t.shape[1]
+    ql = ql.long().cpu().clamp(0, QMAX)
+    tl = tl.long().cpu().clamp(0, TMAX)
+    best, _, qe, tb, te, _ = want.long().cpu()
+    fwd = tl * ql
+    rows = torch.where(tb >= 0, te - tb + 1, te + 1).clamp(min=0)
+    rev = torch.where(best >= max(rev_skip, 1),
+                      rows * (qe + 1).clamp(min=0), 0)
+    ok = swalign_kernel.fits_i16(ql, tl, mat.cpu(), *gaps, QMAX, TMAX)
+    cells = fwd + rev
+    ops = int(torch.where(ok, cells * (OPS_PER_CELL // 2),
+                          cells * OPS_PER_CELL).sum())
+    nbytes = q.numel() + t.numel() + 3 * 4 * len(ql) + 100 + 6 * 4 * len(ql)
+    return dict(_bound(nbytes, ops), i16_share=float(ok.float().mean()),
+                live=int(cells.sum()))
 
 
 def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
@@ -295,7 +332,7 @@ def kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
         if timed:
             ms = _median_ms(lambda: run_k(*args, p))
             plain_ms = _median_ms(lambda: run_p(*args, p))
-        bound = _ext_bound(args, want["rows"], p, i16=kernel == "K1")
+        bound = _ext_bound(args, want["rows"], p, kernel)
         print(f"{name} {var} QMAX {shapes['QMAX']} TMAX {shapes['TMAX']}: "
               f"exact on {shapes['N']} jobs; kernel {ms} ms, plain "
               f"{plain_ms} ms, bound {bound['bound_ms']:.4f} ms "
@@ -353,17 +390,33 @@ def mixed_kernel_phase(device: str = "cuda", N: int = 4096,
               f"h0 100000 and 3000000 lanes)", flush=True)
 
 
+# each DP kernel's wrapper module and the function the main path calls
+# through that module's attribute (so that a capture can wrap it)
+CAPTURED = {"K1": ("extend_kernel", "extend_batch"),
+            "K2": ("swalign_kernel", "sw_align_batch"),
+            "K3": ("extend_banded", "extend_batch_banded")}
+
+
+def _kmod(kernel: str):
+    import importlib
+
+    return importlib.import_module("bwamem_tpu_torch.ops.kernels."
+                                   + CAPTURED[kernel][0])
+
+
 @contextmanager
-def capture_k1():
-    """Record the inputs of every K1 call made inside the block: wraps
-    extend_kernel.extend_batch, which ops/extend.py calls through the
-    module attribute, and clones each call's tensors. Yields the list of
-    calls, each (query, target, qlen, tlen, h0, mat, params)."""
+def capture_calls(kernel: str):
+    """Record the inputs of every call of `kernel` (K1, K2 or K3) made
+    inside the block: wraps the wrapper function that ops/extend.py,
+    ops/swalign.py and pipeline/seedflt.py call through the module
+    attribute (CAPTURED), and clones each call's tensors. Yields the list
+    of calls, each the call's positional arguments (K1, K3: query,
+    target, qlen, tlen, h0, mat, params; K2: query, target, qlen, tlen,
+    minsc, mat, o_del, e_del, o_ins, e_ins, a, rev_skip)."""
     import torch
 
-    from bwamem_tpu_torch.ops.kernels import extend_kernel
-
-    orig = extend_kernel.extend_batch
+    mod, attr = _kmod(kernel), CAPTURED[kernel][1]
+    orig = getattr(mod, attr)
     calls = []
 
     def wrapped(*args):
@@ -371,49 +424,100 @@ def capture_k1():
                            for a in args))
         return orig(*args)
 
-    extend_kernel.extend_batch = wrapped
+    setattr(mod, attr, wrapped)
     try:
         yield calls
     finally:
-        extend_kernel.extend_batch = orig
+        setattr(mod, attr, orig)
 
 
-def captured_k1(label: str, call, timed: bool = True) -> dict:
-    """K1 on the inputs of one captured main-path launch: exact against
-    its plain version, timed (median of 5; `timed` False skips it), with
-    the job count, the qlen quartiles, the live-cell share (live cells
-    over the rows each job ran times QMAX + 1) and the bound. Returns the
-    record."""
-    import numpy as np
+def _check_captured(kernel, label, run, run_plain, N, timed):
+    """A captured launch's kernel call against its plain version: exact
+    (max abs err over every output), and both timed when `timed`.
+    Returns (plain output, err, ms, plain_ms)."""
     import torch
 
-    from bwamem_tpu_torch.ops.kernels import extend_kernel as k1
+    want = run_plain()
+    got = run()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    if isinstance(got, dict):
+        err = max(int((got[k].long() - want[k].long()).abs().max())
+                  for k in got) if N else 0
+    else:
+        err = int((got.long() - want.long()).abs().max()) if N else 0
+    if err != 0:
+        raise SystemExit(f"{kernel} != plain on the captured {label} "
+                         f"launch: max abs err {err}")
+    ms = plain_ms = None
+    if timed:
+        ms = _median_ms(run)
+        plain_ms = _median_ms(run_plain)
+    return want, err, ms, plain_ms
 
+
+def captured_ext(kernel: str, label: str, call, timed: bool = True) -> dict:
+    """K1 or K3 on the inputs of one captured main-path launch: exact
+    against its plain version, timed (median of 5; `timed` False skips
+    it), with the job count, the qlen quartiles, the live-cell share (live
+    cells over the rows each job ran times QMAX + 1), the 16-bit share and
+    the bound. Returns the record."""
+    import numpy as np
+
+    mod = _kmod(kernel)
+    run_k = getattr(mod, CAPTURED[kernel][1])
+    run_p = getattr(mod, CAPTURED[kernel][1] + "_plain")
     *args, p = call
     N, QMAX = args[0].shape
     TMAX = args[1].shape[1]
-    want = k1.extend_batch_plain(*args, p)
-    got = k1.extend_batch(*args, p)
-    if args[0].is_cuda:
-        torch.cuda.synchronize()
-    err = max(int((got[k].long() - want[k].long()).abs().max())
-              for k in got) if N else 0
-    if err != 0:
-        raise SystemExit(f"K1 != plain on the captured {label} launch: "
-                         f"max abs err {err}")
-    ms = plain_ms = None
-    if timed:
-        ms = _median_ms(lambda: k1.extend_batch(*args, p))
-        plain_ms = _median_ms(lambda: k1.extend_batch_plain(*args, p))
-    bound = _ext_bound(args, want["rows"], p)
+    want, err, ms, plain_ms = _check_captured(
+        kernel, label, lambda: run_k(*args, p), lambda: run_p(*args, p), N,
+        timed)
+    bound = _ext_bound(args, want["rows"], p, kernel)
     live = int(_live_cells(args, want["rows"], p.opt_ext, p.w).sum())
     full = int((want["rows"].long() * (QMAX + 1)).sum())
-    qs = np.percentile(args[2].cpu().numpy(), [25, 50, 75])
-    print(f"K1 on the captured {label} launch: {N} jobs, QMAX {QMAX}, TMAX "
-          f"{TMAX}, qlen quartiles {qs[0]:g} / {qs[1]:g} / {qs[2]:g}, live "
-          f"cells {live} = {live / max(full, 1):.4f} of rows x (QMAX+1); "
-          f"exact; kernel {ms} ms, plain {plain_ms} ms, bound "
+    qs = np.percentile(args[2].cpu().numpy(), [25, 50, 75]) if N else [0] * 3
+    print(f"{kernel} on the captured {label} launch: {N} jobs, QMAX {QMAX}, "
+          f"TMAX {TMAX}, qlen quartiles {qs[0]:g} / {qs[1]:g} / {qs[2]:g}, "
+          f"live cells {live} = {live / max(full, 1):.4f} of rows x "
+          f"(QMAX+1); exact; kernel {ms} ms, plain {plain_ms} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; 16-bit jobs "
+          f"{bound.pop('i16_share'):.4f})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+
+
+def captured_k2(label: str, call, timed: bool = True) -> dict:
+    """K2 on the inputs of one captured main-path launch: exact against
+    its plain version, timed (median of 5; `timed` False skips it), with
+    the job count, the qlen quartiles, the live-cell share (the cells the
+    forward and reverse sweeps need, _sw_bound, over the rows they run
+    times QMAX), the 16-bit share and the bound. Returns the record."""
+    import numpy as np
+
+    from bwamem_tpu_torch.ops.kernels import swalign_kernel as k2
+
+    args = call[:6]
+    gaps = call[6:11]
+    rev_skip = call[11] if len(call) > 11 else 0
+    N, QMAX = args[0].shape
+    TMAX = args[1].shape[1]
+    want, err, ms, plain_ms = _check_captured(
+        "K2", label, lambda: k2.sw_align_batch(*args, *gaps, rev_skip),
+        lambda: k2.sw_align_batch_plain(*args, *gaps, rev_skip), N, timed)
+    bound = _sw_bound(args[0], args[1], args[2], args[3], args[5], want,
+                      gaps[:4], rev_skip)
+    live = bound.pop("live")
+    best, _, qe, tb, te, _ = want.long().cpu()
+    rev_rows = (te + 1).clamp(min=0).where(best >= max(rev_skip, 1), 0)
+    full = int(((args[3].long().cpu().clamp(0, TMAX) + rev_rows)
+                * QMAX).sum())
+    qs = np.percentile(args[2].cpu().numpy(), [25, 50, 75]) if N else [0] * 3
+    print(f"K2 on the captured {label} launch: {N} jobs, QMAX {QMAX}, TMAX "
+          f"{TMAX}, rev_skip {rev_skip}, qlen quartiles {qs[0]:g} / "
+          f"{qs[1]:g} / {qs[2]:g}, live cells {live} = "
+          f"{live / max(full, 1):.4f} of rows x QMAX; exact; kernel {ms} ms, "
+          f"plain {plain_ms} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; 16-bit jobs "
           f"{bound.pop('i16_share'):.4f})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
@@ -514,22 +618,15 @@ def sw_kernel_phase(device: str = "cuda", shapes=None, timed: bool = True,
             if (rev_skip, minsc) == product:
                 plain_ms = _median_ms(run_plain)
         hits = int((want[0] >= 19).sum())
-        # forward sweep over every row and query column, reverse sweep
-        # over q[qe..0] x t[te..0] where it runs
-        fwd = (torch.from_numpy(tl).clamp(max=t.shape[1]).long()
-               * torch.from_numpy(ql).clamp(0, q.shape[1]).long()).sum()
-        best, _, qe, _, te, _ = want.long().cpu()
-        rev = torch.where(best >= max(rev_skip, 1),
-                          (te + 1).clamp(min=0) * (qe + 1).clamp(min=0), 0)
-        bound = _bound(q.size + t.size + 3 * 4 * len(ql) + 100
-                       + 6 * 4 * len(ql),
-                       OPS_PER_CELL * int(fwd + rev.sum()))
+        bound = _sw_bound(args[0], args[1], args[2], args[3], args[5], want,
+                          gaps[:4], rev_skip)
+        bound.pop("live")
         print(f"K2 swalign_local {label} QMAX {shapes['QMAX']} TMAX "
               f"{shapes['TMAX']} rev_skip={rev_skip} minsc={minsc}: exact "
               f"on {shapes['N']} jobs ({hits} with score >= 19); kernel "
               f"{ms} ms, plain {plain_ms} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})",
-              flush=True)
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; 16-bit "
+              f"jobs {bound.pop('i16_share'):.4f})", flush=True)
         if (rev_skip, minsc) == product:
             main_rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             **bound)
@@ -702,7 +799,7 @@ def align_phase(d: str, device: str = "cuda",
                 chunk_reads: int = CHUNK_READS):
     """The main path: `align` through the CLI entry point on `device`,
     with the kernel's launch count reset just before and read just after
-    and its calls captured (capture_k1). Then the first N_COMPARE reads on
+    and its calls captured (capture_calls). Then the first N_COMPARE reads on
     the CPU. Returns the launch count, reads/s and the captured calls."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import extend_kernel
@@ -715,7 +812,7 @@ def align_phase(d: str, device: str = "cuda",
             os.path.join(d, "reads.fq"), "-o", out]
     extend_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
-    with capture_k1() as calls:
+    with capture_calls("K1") as calls:
         if main(argv) != 0:
             raise SystemExit("align failed")
     wall = time.perf_counter() - t0
@@ -779,9 +876,10 @@ def pe_align_phase(d: str, device: str = "cuda",
                    chunk_pairs: int = CHUNK_PAIRS):
     """The PE main path: `align` of r1.fq + r2.fq through the CLI entry
     point on `device`, with K1's and K2's launch counts reset just before
-    and read just after. Then the head pairs on `device` and on the CPU,
-    with the same flags and -K, must give the same SAM. Returns
-    (K1 launches, K2 launches, pairs/s)."""
+    and read just after and K2's calls captured (capture_calls). Then the
+    head pairs on `device` and on the CPU, with the same flags and -K,
+    must give the same SAM. Returns (K1 launches, K2 launches, pairs/s, the
+    captured K2 calls)."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import extend_kernel, swalign_kernel
 
@@ -802,7 +900,8 @@ def pe_align_phase(d: str, device: str = "cuda",
     extend_kernel.LAUNCHES = 0
     swalign_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
-    out, tsv = align(device, "r1.fq", "r2.fq", "main")
+    with capture_calls("K2") as sw_calls:
+        out, tsv = align(device, "r1.fq", "r2.fq", "main")
     wall = time.perf_counter() - t0
     k1, k2 = extend_kernel.LAUNCHES, swalign_kernel.LAUNCHES
     body = [ln.split("\t") for ln in _records(out) if not ln.startswith("@")]
@@ -849,7 +948,7 @@ def pe_align_phase(d: str, device: str = "cuda",
     print(f"first {N_COMPARE} pairs: {device} SAM == CPU SAM "
           f"({len(want)} lines; {device} run {t1 - t0:.1f} s, CPU run "
           f"{time.perf_counter() - t1:.1f} s)", flush=True)
-    return k1, k2, n_pairs / wall
+    return k1, k2, n_pairs / wall, sw_calls
 
 
 def _head(src: str, dst: str, n: int) -> None:
@@ -869,8 +968,8 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     the first n_head reads with --device cpu, whose SAM must be
     byte-identical to the device run's records of those reads. Returns
     the launch counts (K1, K1's wide route, K2, K3), reads/s
-    and, with `capture`, the device run's K1 calls (capture_k1) as
-    k1_calls."""
+    and, with `capture`, the device run's K1, K2 and K3 calls
+    (capture_calls) as k1_calls, k2_calls and k3_calls."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
                                               swalign_kernel)
@@ -892,7 +991,9 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
         m.LAUNCHES = 0
     extend_kernel.WIDE_LAUNCHES = 0
     t0 = time.perf_counter()
-    with (capture_k1() if capture else nullcontext()) as calls:
+    with ExitStack() as stack:
+        calls = {f"{k.lower()}_calls": stack.enter_context(
+            capture_calls(k)) for k in CAPTURED} if capture else {}
         recs, row = align(device, os.path.join(d, reads), "main")
     wall = time.perf_counter() - t0
     counts = {k: m.LAUNCHES for k, m in mods.items()}
@@ -931,7 +1032,7 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     print(f"{tag}: first {len(names)} reads: {device} SAM == CPU SAM "
           f"({len(want)} lines, CPU run {time.perf_counter() - t0:.1f} s)",
           flush=True)
-    return dict(counts, reads_per_s=n / wall, k1_calls=calls)
+    return dict(counts, reads_per_s=n / wall, **calls)
 
 
 def long_read_phases(d: str, contigs, device: str = "cuda",
@@ -961,7 +1062,7 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
                              ("K1", "K2"), device, capture=True)
     phase("7 --vanilla (250 bp)")
     out["vanilla"] = flag_phase(d, "vanilla", "r250.fq", heads[1],
-                                ["--vanilla"], ("K3",), device)
+                                ["--vanilla"], ("K3",), device, capture=True)
     phase("8 filters: -F (150 bp), -x pacbio (1 kb)")
     out["shd"] = flag_phase(d, "shd", "shd.fq", heads[2], ["-F"], ("K1",),
                             device)
@@ -1086,6 +1187,11 @@ def _widest(calls):
     return max(calls, key=lambda c: c[0].shape[1])
 
 
+def _largest(calls):
+    """The captured call with the most jobs."""
+    return max(calls, key=lambda c: c[0].shape[0])
+
+
 def main() -> int:
     import torch
 
@@ -1111,12 +1217,14 @@ def main() -> int:
     k2_flt = sw_kernel_phase("cuda", FILTER_SHAPES, variants=[(0, 0)],
                              product=(0, 0), jobs=make_filter_jobs,
                              label="seed filter")
-    sw_kernel_phase("cuda", FILTER_PB_SHAPES, variants=[(0, 0)],
-                    product=(0, 0), jobs=make_filter_jobs, scoring=PACBIO,
-                    label="seed filter -x pacbio")
+    k2_flt_pb = sw_kernel_phase("cuda", FILTER_PB_SHAPES, variants=[(0, 0)],
+                                product=(0, 0), jobs=make_filter_jobs,
+                                scoring=PACBIO, label="seed filter -x pacbio")
     k1_pb = [kernel_phase("cuda", sh, variants=[(False, 0)], scoring=PACBIO)
              for sh in PB_SHAPES]
     mixed_kernel_phase("cuda")
+    k1_wide = kernel_phase("cuda", K1_WIDE_ROUTE_SHAPES,
+                           variants=[(False, 0)])
     k3 = kernel_phase("cuda", K3_SHAPES, kernel="K3", variants=K3_VARIANTS)
     kernel_phase("cuda", K3_WIDE_SHAPES, kernel="K3", variants=[(300, 0)])
     k4 = probe_kernel_phase("cuda")
@@ -1137,14 +1245,23 @@ def main() -> int:
         phase("4 align")
         launches, _, calls = align_phase(d)
         # the second, warm chunk's launch
-        captured_k1("phase4", calls[min(1, len(calls) - 1)])
+        captured_ext("K1", "phase4", calls[min(1, len(calls) - 1)])
 
         phase("5 paired-end align")
-        _, sw_launches, _ = pe_align_phase(d)
+        _, sw_launches, _, sw_calls = pe_align_phase(d)
+        # the second, warm chunk's rescue launch
+        cap = dict(rescue=captured_k2(
+            "phase5 rescue", sw_calls[min(1, len(sw_calls) - 1)]))
 
         runs = long_read_phases(d, contigs)
-        captured_k1("phase6", _widest(runs["long"]["k1_calls"]))
-        captured_k1("pacbio1024", _widest(runs["pacbio"]["k1_calls"]))
+        captured_ext("K1", "phase6", _widest(runs["long"]["k1_calls"]))
+        captured_ext("K1", "pacbio1024", _widest(runs["pacbio"]["k1_calls"]))
+        cap["filter"] = captured_k2("phase6 seed filter",
+                                    _largest(runs["long"]["k2_calls"]))
+        cap["filter_pb"] = captured_k2("pacbio seed filter",
+                                       _largest(runs["pacbio"]["k2_calls"]))
+        cap["banded"] = captured_ext("K3", "phase7",
+                                     _largest(runs["vanilla"]["k3_calls"]))
 
         phase("9 seeding variants (-u 2, -u 3, -g, -u 4)")
         variant_phases(d)
@@ -1176,10 +1293,38 @@ def main() -> int:
              source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
              replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
              launches=runs["long"]["K2"], **k2_flt),
+        dict(name="swalign_local_seedflt_pacbio", route="cuda",
+             library_ms=None,
+             source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
+             launches=runs["pacbio"]["K2"], **k2_flt_pb),
         dict(name="extend_banded", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_banded.cu",
              replaces="bwamem_tpu/ops/pallas/extend_banded.py:241",
              launches=runs["vanilla"]["K3"], **k3),
+        dict(name="extend_dense_wide_route", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/extend_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/extend_kernel.py:265",
+             launches=runs["long"]["K1_wide"], **k1_wide),
+        dict(name="swalign_local_captured_rescue", route="cuda",
+             library_ms=None,
+             source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
+             launches=sw_launches, **cap["rescue"]),
+        dict(name="swalign_local_captured_seedflt", route="cuda",
+             library_ms=None,
+             source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
+             launches=runs["long"]["K2"], **cap["filter"]),
+        dict(name="swalign_local_captured_seedflt_pacbio", route="cuda",
+             library_ms=None,
+             source="bwamem_tpu_torch/csrc/swalign_kernel.cu",
+             replaces="bwamem_tpu/ops/pallas/swalign_kernel.py:173",
+             launches=runs["pacbio"]["K2"], **cap["filter_pb"]),
+        dict(name="extend_banded_captured", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/extend_banded.cu",
+             replaces="bwamem_tpu/ops/pallas/extend_banded.py:241",
+             launches=runs["vanilla"]["K3"], **cap["banded"]),
         dict(name="int16_probe", route="cuda",
              source="bwamem_tpu_torch/csrc/int16_probe.cu",
              replaces="tools/mosaic_probe.py:29",

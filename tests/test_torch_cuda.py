@@ -9,11 +9,16 @@ kernel bins on the device against job_bins and fits_i16. K3 (banded
 extension): exact against its plain version for (w, zdrop) in (100, 0),
 (100, 40), (300, 0), (64, 100) with degenerate lanes, one launch per
 call, and extend_batch_auto sends the banded shapes to it and the rest to
-K1. K2 (local SW): exact against its
-plain version at the rescue path's widths and three others (TMAX 3072:
-exactly 48 KB of row maxima per block), with and without rev_skip, and at
+K1; its 16-bit pairs where z-drop ends the two alignments of a warp at
+unlike rows beside int32 edge lanes (h0 past 2^20), and a matrix outside
+int8. K2 (local SW): exact against its
+plain version at the rescue path's widths and three others (TMAX 3072),
+with and without rev_skip, and at
 the seed filter's 200 x 200 windows (minsc 0, rev_skip 0) at the default
-and -x pacbio scoring, one launch per call, the wrapper's input checks. K4
+and -x pacbio scoring; in one launch spanning every width class with
+16-bit and int32 jobs side by side, ties and edge lanes, in all four
+(rev_skip, minsc) variants; with a matrix outside int8; one launch per
+call, the wrapper's input checks. K4
 (the 16-bit probe): every case exact against its plain version at the
 probe's (8, 128), at (3, 34) and at (16384, 1024) on full-range int16, one
 launch per call, and the wrapper refuses odd column counts, other dtypes
@@ -358,3 +363,114 @@ def test_int16_probe_wrapper_checks_inputs():
         with pytest.raises(ValueError):
             int16_probe.run_case("roll", bad)
     assert int16_probe.LAUNCHES == before
+
+
+def _mixed_sw_args(n=1600, qmax=1000, tmax=700, seed=12, minsc=19, a=25):
+    """One K2 launch over every width class: make_sw_jobs' jobs with qlen
+    0..qmax in even steps over the first 200 jobs, short and long ones
+    after; at a match score of 25 the jobs whose min(qlen, tlen) passes
+    about 600 take int32 cells beside the 16-bit rest. Ties: queries and
+    targets of a repeated base or a repeated pair (many cells share the
+    row max, and many rows the best), an all-N target, qlen 0 and 1,
+    tlen 0 and 1, a full-width job."""
+    rng = np.random.default_rng(seed)
+    q, t, ql, tl = make_sw_jobs(rng, n, qmax, tmax)
+    ql[:200] = np.arange(200) * (qmax // 200)
+    ql[200:] = rng.integers(0, qmax + 1, n - 200)
+    tl[:] = rng.integers(0, tmax + 1, n)
+    q[10:20] = 0
+    t[10:20] = 0
+    q[20:30] = np.tile([1, 2], qmax // 2)
+    t[20:30] = np.tile([1, 2], tmax // 2)
+    t[30] = 4
+    ql[31], ql[32], tl[33], tl[34] = 0, 1, 0, 1
+    ql[35], tl[35] = qmax, tmax
+    return [torch.from_numpy(x) for x in (
+        q, t, ql, tl, np.full(n, minsc, np.int32),
+        extend.make_score_matrix(a, 4))]
+
+
+@pytest.mark.parametrize("rev_skip,minsc", [(0, 0), (0, 19), (19, 0),
+                                            (19, 19)])
+def test_sw_kernel_every_class_in_one_launch(rev_skip, minsc):
+    """K2 in one launch spanning every width class, 16-bit and int32 jobs
+    side by side, ties on the earliest column and row, edge lanes: exact
+    against the plain version in all four (rev_skip, minsc) variants."""
+    args = _mixed_sw_args(minsc=minsc)
+    gaps = (6, 1, 6, 1, 25, rev_skip)
+    fits = swalign_kernel.fits_i16(args[2], args[3], args[5], *gaps[:4],
+                                   args[0].shape[1], args[1].shape[1])
+    assert 0 < int(fits.sum()) < len(fits)
+    want = _plain(swalign_kernel.sw_align_batch_plain, args, *gaps)
+    before = swalign_kernel.LAUNCHES
+    got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
+    torch.cuda.synchronize()
+    assert swalign_kernel.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sw_kernel_matrix_outside_int8():
+    """A match score past a signed byte: every job takes the int32 cells
+    with the score from the shared matrix and a 64-bit row-max key."""
+    args = _mixed_sw_args(n=600, qmax=300, tmax=300, a=300)
+    gaps = (6, 1, 6, 1, 300, 19)
+    want = _plain(swalign_kernel.sw_align_batch_plain, args, *gaps)
+    got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("w,zdrop", [(100, 100), (100, 30), (300, 100)])
+def test_banded_pairs_of_unlike_rows_under_zdrop(w, zdrop):
+    """K3's 16-bit pairs where z-drop ends the two alignments of a warp at
+    very different rows (targets that turn random after a prefix of
+    random length), beside edge lanes on int32 cells (h0 = 100000, h0
+    past 2^20 with its 64-bit key, qlen 0 and 1, tlen 0) and a full-width
+    job: exact against the plain version."""
+    qmax = 1024 if w == 300 else 256
+    tmax = qmax + 256
+    rng = np.random.default_rng(w + zdrop)
+    q, t, ql, tl, h0 = make_jobs(rng, 1500, qmax, tmax, tail=256)
+    cut = rng.integers(0, tmax, len(ql))
+    for i in np.flatnonzero(rng.random(len(ql)) < 0.6):
+        t[i, cut[i]:] = rng.integers(0, 4, tmax - cut[i])
+    ql[5], ql[6], tl[7] = 0, 1, 0
+    h0[8:11] = 3_000_000
+    args = [torch.from_numpy(x) for x in (q, t, ql, tl, h0,
+                                          extend.make_score_matrix(1, 4))]
+    p = extend.ExtendParams(w=w, zdrop=zdrop, opt_ext=True)
+    want = _plain(extend_banded.extend_batch_banded_plain, args, p)
+    got = extend_banded.extend_batch_banded(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    rows = want["rows"]
+    assert int(rows.max()) > 4 * int(rows[rows > 0].min())
+    for k in got:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_banded_matrix_outside_int8():
+    """A match score past a signed byte: every alignment takes the int32
+    cells with the score from the shared matrix and a 64-bit key."""
+    args = _banded_args(400, 256, 384)
+    args[5] = torch.from_numpy(extend.make_score_matrix(200, 4))
+    p = extend.ExtendParams(w=100, zdrop=100, opt_ext=True, max_mat=200)
+    want = _plain(extend_banded.extend_batch_banded_plain, args, p)
+    got = extend_banded.extend_batch_banded(*(a.cuda() for a in args), p)
+    torch.cuda.synchronize()
+    for k in got:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_sw_kernel_rows_past_shared_memory():
+    """Past 14528 target rows K2 keeps its row maxima in a global buffer
+    the wrapper allocates: exact against the plain version, with score2's
+    rows far from the best one."""
+    rng = np.random.default_rng(14)
+    args = _sw_args(96, 160, 16_000, seed=14)
+    tl = args[3].numpy()
+    tl[:8] = rng.integers(14_600, 16_001, 8)
+    gaps = (6, 1, 6, 1, 1, 19)
+    want = _plain(swalign_kernel.sw_align_batch_plain, args, *gaps)
+    got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

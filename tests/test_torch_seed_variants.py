@@ -179,6 +179,55 @@ def test_mem_mode_big_batch_matches_uncompacted_jax(world, n_reads, read_len,
     assert got == want
 
 
+@pytest.mark.parametrize("n_reads", [16, 64])
+def test_mem_mode_pool_overflow_matches_jax(repeats, n_reads, tmp_path):
+    """-g on 190 bp reads at 5% substitutions, whose round-1 candidates
+    (about 95 a read) overflow the JAX pool of bucket_count(reads) x 32
+    slots: the JAX aligner grows cand_pool by its overflow retry's jump
+    and seeds again on the wider pool; the port applies the same jump
+    from its own candidate count before its walk (one pass) and gives
+    the same seeds, and keeps the grown cand_pool for later batches.
+    A fresh pool store starts the JAX aligner at the default cand_pool."""
+    from bwamem_tpu.pipeline.poolstore import PoolStore
+
+    g, jidx, tidx = repeats
+    seqs = _sample(g, n_reads, 190, 0.05, 11)
+    jal, tal = _aligners(jidx, tidx, re_seed=True)
+    jal.pool_store = PoolStore(str(tmp_path / "pools.json"))
+    start = jal.seed_cfg.cand_pool
+    assert start == tal.seed_cfg.cand_pool == 32
+    want = jal.seed_batch(seqs)
+    got = tal.seed_batch(seqs)
+    assert jal.seed_cfg.cand_pool > start  # the JAX pool overflowed
+    assert tal.seed_cfg.cand_pool == jal.seed_cfg.cand_pool
+    assert got == want
+    # the port keeps the grown pool for later batches (the JAX aligner
+    # would next adopt the size its pool store learned, which the port
+    # does not follow)
+    grown = tal.seed_cfg.cand_pool
+    tal.seed_batch(seqs[:8])
+    assert tal.seed_cfg.cand_pool == grown
+
+
+@pytest.mark.parametrize("c_need,reads,pool,want", [
+    (512, 16, 32, 32), (513, 16, 32, 64), (1024, 16, 32, 64),
+    (1025, 16, 32, 128), (1514, 16, 32, 128), (2049, 16, 32, 256),
+    (10 ** 6, 16, 32, 4096), (10 ** 6, 16, 4096, 4096), (0, 16, 32, 32),
+    (5000, 16, 2048, 2048), (40000, 16, 2048, 4096)])
+def test_grown_cand_pool_rule(c_need, reads, pool, want):
+    """The JAX overflow retry's jump (bwamem_tpu/pipeline/aligner.py):
+    m = ceil(c_need / (reads x pool)); m > 1 grows the pool by
+    2^bit_length(max(m - 1, 1)), capped at 4096; the grown pool holds
+    every candidate, so a second round would not grow it again."""
+    from bwamem_tpu_torch.ops.seeding import grown_cand_pool
+
+    got = grown_cand_pool(c_need, reads, pool)
+    assert got == want
+    if got < 4096:
+        assert reads * got >= c_need
+        assert grown_cand_pool(c_need, reads, got) == got
+
+
 def test_kmer_table_matches_jax(env):
     from bwamem_tpu.index.device import DeviceFMIndex as JaxFM
     from bwamem_tpu.ops import fm as jfm_ops

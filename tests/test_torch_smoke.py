@@ -76,31 +76,64 @@ def test_world_and_align_phases_on_cpu(world):
     # every K1 call was captured (300 reads, 128 a chunk); the second
     # one's inputs replay exact against the plain version
     assert len(calls) == 3
-    rec = chip_smoke.captured_k1("phase4", calls[1], timed=False)
+    rec = chip_smoke.captured_ext("K1", "phase4", calls[1], timed=False)
     assert rec["max_abs_err"] == 0 and rec["bound_ms"] > 0
 
 
 def test_pe_align_phase_on_cpu(world, monkeypatch):
     monkeypatch.chdir(world)  # the CLI appends to ./time.log
-    k1, k2, rate = chip_smoke.pe_align_phase(world, device="cpu",
-                                             chunk_pairs=64)
+    k1, k2, rate, sw_calls = chip_smoke.pe_align_phase(
+        world, device="cpu", chunk_pairs=64)
     assert k1 == k2 == 0 and rate > 0  # CPU tensors launch no kernel
+    # mate rescue went through K2's wrapper, and its inputs replay exact
+    assert sw_calls
+    rec = chip_smoke.captured_k2("phase5 rescue", sw_calls[-1], timed=False)
+    assert rec["max_abs_err"] == 0 and rec["bound_ms"] > 0
 
 
-def test_long_read_phases_on_cpu(world, monkeypatch):
-    """Phases 6-8 at a tiny size, with their SAM checks against a second
-    CPU run; CPU tensors launch no kernel."""
+@pytest.fixture(scope="module")
+def long_runs(world):
+    """Phases 6-8 at a tiny size on the world (the CLI appends to
+    ./time.log, so they run inside it)."""
     from bwamem_tpu_torch.io.fastx import read_fastx
 
-    monkeypatch.chdir(world)  # the CLI appends to ./time.log
     contigs = [(r.name, "".join("ACGTN"[c] for c in r.seq))
                for r in read_fastx(os.path.join(world, "ref.fa"))]
-    runs = chip_smoke.long_read_phases(world, contigs, device="cpu",
-                                       sizes=(4, 16, 32, 4),
-                                       heads=(2, 8, 16, 2))
-    assert set(runs) == {"long", "vanilla", "shd", "pacbio"}
-    for r in runs.values():
+    cwd = os.getcwd()
+    os.chdir(world)
+    try:
+        return chip_smoke.long_read_phases(world, contigs, device="cpu",
+                                           sizes=(4, 16, 32, 4),
+                                           heads=(2, 8, 16, 2))
+    finally:
+        os.chdir(cwd)
+
+
+def test_long_read_phases_on_cpu(long_runs):
+    """Phases 6-8 at a tiny size, with their SAM checks against a second
+    CPU run; CPU tensors launch no kernel."""
+    assert set(long_runs) == {"long", "vanilla", "shd", "pacbio"}
+    for r in long_runs.values():
         assert r["K1"] == r["K2"] == r["K3"] == 0 and r["reads_per_s"] > 0
+
+
+@pytest.mark.parametrize("tag,kernel", [
+    ("long", "K1"), ("long", "K2"), ("pacbio", "K1"), ("pacbio", "K2"),
+    ("vanilla", "K3")])
+def test_captured_launches_on_cpu(long_runs, tag, kernel):
+    """The phases' captured calls (capture_calls): the seed filter's K2
+    calls of phase 6 and -x pacbio, phase 7's K3 calls and the K1 calls
+    replay exact against the plain versions, with a bound. On the CPU
+    ops/extend.py hands --vanilla's extensions to K1's plain version
+    (the card takes K3), so K3 replays those captured K1 calls."""
+    calls = long_runs[tag]["k1_calls" if kernel == "K3"
+                           else f"{kernel.lower()}_calls"]
+    assert calls
+    call = chip_smoke._largest(calls)
+    rec = (chip_smoke.captured_k2(tag, call, timed=False) if kernel == "K2"
+           else chip_smoke.captured_ext(kernel, tag, call, timed=False))
+    assert rec["max_abs_err"] == 0 and rec["bound_ms"] > 0
+    assert rec["ms"] is None and rec["bound_by"] in ("bytes", "operations")
 
 
 def test_probe_kernel_phase_on_cpu():

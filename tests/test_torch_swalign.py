@@ -232,3 +232,112 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError):  # neither CPU nor CUDA
         swalign_kernel.sw_align_batch(*(x.to("meta") for x in args),
                                       6, 1, 6, 1, 1)
+
+
+# K2's 16-bit route: the plain version with int16 cells against int64 on
+# the jobs fits_i16 admits, at the main path's shapes and scorings
+I16_SCORINGS = {"default": (1, 4, 6, 1, 6, 1), "pacbio": (1, 1, 1, 1, 1, 1)}
+
+
+def _sw_jobs(kind, n, seed):
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    if kind == "rescue":
+        return chip_smoke.make_sw_jobs(rng, n, 192, 768)
+    return chip_smoke.make_filter_jobs(rng, n, 200, 200)
+
+
+@pytest.mark.parametrize("rev_skip,minsc", [(0, 0), (19, 19)])
+@pytest.mark.parametrize("scoring", list(I16_SCORINGS))
+@pytest.mark.parametrize("kind", ["rescue", "filter"])
+def test_plain_in_int16_matches_int64(kind, scoring, rev_skip, minsc):
+    """The plain version's cells in int16 (what the kernel's two 16-bit
+    jobs a register compute) equal its int64 cells on the rescue's and
+    the seed filter's jobs, at the default and -x pacbio scoring, with
+    and without rev_skip and minsc: fits_i16 admits every one of them."""
+    a, b, *gaps = I16_SCORINGS[scoring]
+    Q, T, ql, tl = _sw_jobs(kind, 40, 31)
+    mat = make_score_matrix(a, b)
+    args = [torch.from_numpy(x) for x in (
+        Q, T, ql, tl, np.full(len(ql), minsc, np.int32), mat)]
+    fits = swalign_kernel.fits_i16(args[2], args[3], args[5], *gaps,
+                                   Q.shape[1], T.shape[1])
+    assert bool(fits.all())
+    want = swalign_kernel.sw_align_batch_plain(*args, *gaps, a, rev_skip)
+    got = swalign_kernel.sw_align_batch_plain(*args, *gaps, a, rev_skip,
+                                              torch.int16)
+    assert int(want[0].max()) > 19
+    assert torch.equal(got, want)
+
+
+def test_plain_in_int16_at_the_predicate_edge():
+    """Jobs whose query is its target, at a match score of 127 (the
+    largest a signed byte holds): a job of 127 columns scores 16129 and
+    fits_i16 admits it, one of 128 does not; the int16 cells equal the
+    int64 ones on the admitted jobs."""
+    n = 127
+    rng = np.random.default_rng(5)
+    seq = rng.integers(0, 4, n).astype(np.int8)
+    Q = np.tile(seq, (4, 1))
+    T = Q.copy()
+    ql = np.array([n, n - 1, 64, 1], np.int32)
+    tl = np.array([n, n, n - 3, n], np.int32)
+    mat = make_score_matrix(127, 4)
+    args = [torch.from_numpy(x) for x in (Q, T, ql, tl,
+                                          np.zeros(4, np.int32), mat)]
+    gaps = (6, 1, 6, 1)
+    assert bool(swalign_kernel.fits_i16(args[2], args[3], args[5], *gaps,
+                                        n, n).all())
+    want = swalign_kernel.sw_align_batch_plain(*args, *gaps, 127)
+    got = swalign_kernel.sw_align_batch_plain(*args, *gaps, 127, 0,
+                                              torch.int16)
+    assert int(want[0, 0]) == 127 * n
+    assert torch.equal(got, want)
+    one = torch.tensor([128], dtype=torch.int32)
+    assert not bool(swalign_kernel.fits_i16(one, one, args[5], *gaps, 128,
+                                            128))
+
+
+def test_fits_i16_boundary():
+    """fits_i16's sum, amax * min(qcol, rows) + e_ins * (class columns +
+    1) + the largest gap open, at 2^14 - 1 (admitted) and 2^14 (not);
+    a matrix entry outside a signed byte or a negative gap penalty
+    refuses every job."""
+    mat = torch.from_numpy(make_score_matrix(1, 4))
+    # 100 columns: class 128; 100 + 129 * 125 + (33 + 125) = 2^14 - 1
+    gaps = (2, 1, 33, 125)
+    ql = torch.tensor([100, 100, 101, 101], dtype=torch.int32)
+    tl = torch.tensor([100, 99, 100, 101], dtype=torch.int32)
+    got = swalign_kernel.fits_i16(ql, tl, mat, *gaps, 200, 200).tolist()
+    assert got == [True, True, True, False]
+    assert swalign_kernel.class_cols(ql.long()).tolist() == [128] * 4
+    for m, g in ((make_score_matrix(1, 200), (6, 1, 6, 1)),
+                 (make_score_matrix(1, 4), (6, -1, 6, 1))):
+        assert not bool(swalign_kernel.fits_i16(
+            ql, tl, torch.from_numpy(m), *g, 200, 200).any())
+
+
+def test_job_bins_cover_every_job_once():
+    """K2's job order (swalign_kernel.job_bins, the rule the kernel's bins
+    follow on the device): taking the jobs in bin order visits each job
+    exactly once, widest class first, its 16-bit jobs first, and each
+    job's class is the first whose columns hold its qlen."""
+    rng = np.random.default_rng(9)
+    N, QMAX, TMAX = 3000, 1000, 700
+    ql = torch.from_numpy(rng.integers(-2, QMAX + 3, N).astype(np.int32))
+    tl = torch.from_numpy(rng.integers(0, TMAX + 3, N).astype(np.int32))
+    mat = torch.from_numpy(make_score_matrix(25, 4))
+    fits = swalign_kernel.fits_i16(ql, tl, mat, 6, 1, 6, 1, QMAX, TMAX)
+    assert 0 < int(fits.sum()) < N  # both routes in one launch
+    bins, cls = swalign_kernel.job_bins(ql, tl, fits, QMAX, TMAX)
+    order = torch.argsort(bins, stable=True)
+    assert sorted(order.tolist()) == list(range(N))
+    assert bool((cls[order][1:] <= cls[order][:-1]).all())
+    cols = ql.long().clamp(0, QMAX)
+    cc = torch.tensor(swalign_kernel.CLASS_COLS)
+    assert bool((cc[cls] >= cols).all())
+    assert bool(((cls == 0) | (cc[(cls - 1).clamp(min=0)] < cols)).all())
+    for c in cls.unique().tolist():
+        f = fits[order][cls[order] == c]
+        assert bool((f[1:] <= f[:-1]).all())  # 16-bit jobs first
