@@ -9,7 +9,10 @@ Layout (each module sits at the same relative path as its JAX twin):
   ops/       torch device stages: FM primitives, SMEM seeding, window
              gathers, extension glue; ops/kernels/ holds the kernel
              wrappers, csrc/ their CUDA sources
-  pipeline/  host orchestration (copied) + the SE MemAligner
+  pipeline/  host orchestration (copied) + the MemAligner
+  models/    the fused device step (seeds to merged coordinates)
+  parallel/  data parallel over the GPUs of a process (sharded.py) and
+             over hosts (multihost.py, copied but for the Gloo join)
   native/    ctypes loader of the shared C++ core (<repo>/native)
   io/, oracle/, utils/  copied host helpers
 

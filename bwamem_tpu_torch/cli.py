@@ -4,8 +4,11 @@ single-end reads or of pairs (two files, or one interleaved file with -p;
 `gase_aln` and `mem` accepted as aliases), with the JAX package's flags
 plus --device.
 
-Multi-device runs are not ported yet and exit with a one-line error
-naming the ROADMAP item.
+`align --n-chips N` runs data parallel over N GPUs of this process
+(parallel/sharded.py; 0 = every visible card); `--n-hosts W --host-id R`
+aligns host R's contiguous share of the records into `<out>.shard<R>`,
+and host 0 merges the shards into -o (parallel/multihost.py; with
+--coordinator the hosts first join a Gloo process group).
 """
 from __future__ import annotations
 
@@ -26,9 +29,12 @@ def _add_align_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-t", type=int, default=1, dest="n_threads",
                    help="host worker threads")
     p.add_argument("--n-chips", type=int, default=1, dest="n_chips",
-                   help="data-parallel device count (only 1 so far)")
+                   help="data-parallel GPU count of this process (0 = all "
+                        "visible cards; with --device cpu, shards on the "
+                        "CPU)")
     p.add_argument("--n-hosts", type=int, default=1, dest="n_hosts",
-                   help="multi-host world size (only 1 so far)")
+                   help="multi-host world size (each host aligns a "
+                        "contiguous record range; needs --host-id and -o)")
     p.add_argument("--host-id", type=int, default=None, dest="host_id",
                    help="this process's rank in 0..n_hosts-1")
     p.add_argument("--coordinator", default=None,
@@ -137,11 +143,12 @@ def _add_align_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--vanilla", action="store_true",
                    help="vanilla bwa-mem defaults (w=100, zdrop=100)")
     p.add_argument("--seed-cands", type=int, default=48,
-                   help="accepted for compatibility; seed compaction is "
-                        "exact here, with no fixed pools")
+                   help="the JAX package's candidate slots a read: seed "
+                        "compaction is exact here, but -g follows the "
+                        "JAX walk on its pool's width")
     p.add_argument("--seed-cap", type=int, default=8,
-                   help="accepted for compatibility; seed compaction is "
-                        "exact here, with no fixed pools")
+                   help="the JAX package's seed slots a read: where -g "
+                        "splits a batch as the JAX aligner does")
     p.add_argument("--device", default="cuda",
                    help="torch device for the device stages [cuda]; there "
                         "is no automatic fallback to the CPU")
@@ -451,11 +458,6 @@ def _options(args):
 
 
 def cmd_align(args) -> int:
-    if args.n_chips != 1 or args.n_hosts > 1:
-        raise NotImplementedError(
-            "--n-chips/--n-hosts other than 1 are not ported yet (ROADMAP "
-            "queue A: multi-GPU/multi-host)")
-
     from .index.format import FMIndex
     from .io.fastx import read_fastx
     from .pipeline.aligner import MemAligner
@@ -465,6 +467,20 @@ def cmd_align(args) -> int:
 
     opt = _options(args)
     paired = args.mates is not None or args.smart_pairing
+    shard = None
+    if args.n_hosts > 1:
+        from .parallel import multihost as mh
+
+        if args.host_id is None or not 0 <= args.host_id < args.n_hosts:
+            sys.exit(f"[{PROG}] --n-hosts requires --host-id in "
+                     "0..n_hosts-1")
+        if args.output is None:
+            sys.exit(f"[{PROG}] multi-host mode requires -o (shards live "
+                     "next to the output on the shared filesystem)")
+        if args.reads == "-" or args.mates == "-":
+            sys.exit(f"[{PROG}] stdin input cannot be range-sharded "
+                     "across hosts")
+        shard = mh.HostShard(rank=args.host_id, world=args.n_hosts)
     idx = FMIndex.load(args.index_prefix + ".bmt")
     if getattr(args, "ignore_alt", False) and idx.ann.is_alt:
         # -j: treat ALT contigs as part of the primary assembly
@@ -474,15 +490,39 @@ def cmd_align(args) -> int:
     from .pipeline.hostpool import HostPool
 
     host_pool = HostPool(opt, idx, args.n_threads)
+    joined = False
     try:
+        if shard is not None and args.coordinator:
+            # the control plane, joined before any device use (and after
+            # the fork above); the data path never crosses hosts
+            _join(args)
+            joined = True
         _no_cuda_exit(args.device)
+        # the native core's first build, one process at a time: hosts that
+        # start together would otherwise link the same library at once
+        _load_native()
         seed_cfg = SeedConfig(min_seed_len=opt.min_seed_len,
-                              max_occ=opt.max_occ, reseed=opt.full_reseed,
+                              cand_pool=args.seed_cands,
+                              seed_pool=args.seed_cap, max_occ=opt.max_occ,
+                              reseed=opt.full_reseed,
                               split_factor=opt.split_factor,
                               split_width=opt.split_width,
                               max_mem_intv=opt.max_mem_intv)
+        mesh = None
+        if args.n_chips != 1:
+            from .parallel.sharded import make_mesh
+
+            try:
+                mesh = make_mesh(args.n_chips or None, args.device)
+            except RuntimeError as e:
+                sys.exit(f"[{PROG}] error: --n-chips {args.n_chips}: {e}")
+            if mesh.size > 1:
+                print(f"[{PROG}] data-parallel over {mesh.size} devices",
+                      file=sys.stderr)
+            else:
+                mesh = None
         aligner = MemAligner(opt, idx, seed_cfg=seed_cfg,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
         if args.insert_spec:
             from .pipeline.pairing import pestat_from_spec
 
@@ -494,19 +534,32 @@ def cmd_align(args) -> int:
         records = read_fastx(args.reads)
         if args.mates is not None:
             records = _interleave(records, read_fastx(args.mates))
-        out = open(args.output, "w") if args.output else sys.stdout
+        if shard is not None:
+            n_rec = mh.count_records(args.reads)
+            if args.mates is not None:
+                n_rec *= 2
+            lo, hi = mh.record_range(n_rec, shard.rank, shard.world,
+                                     granularity=2 if paired else 1)
+            records = mh.take_range(records, lo, hi)
+            print(f"[{PROG}] host {shard.rank}/{shard.world}: records "
+                  f"[{lo}, {hi}) of {n_rec}", file=sys.stderr)
+            out = open(mh.shard_path(args.output, shard.rank), "w")
+        else:
+            out = open(args.output, "w") if args.output else sys.stdout
         timings = Timings()
         cmdline = f"{PROG} " + " ".join(sys.argv[1:])
-        for line in _sam_header(idx, args.rg_line, cmdline):
-            out.write(line + "\n")
-        if args.header_insert:  # -H (reference: src/bwa.c:425-466)
-            if args.header_insert.startswith("@"):
-                out.write(args.header_insert.replace("\\t", "\t") + "\n")
-            else:
-                with open(args.header_insert) as hf:
-                    for hl in hf:
-                        if hl.strip():
-                            out.write(hl.rstrip("\n") + "\n")
+        if shard is None or shard.is_primary:  # the header once, in shard 0
+            for line in _sam_header(idx, args.rg_line, cmdline):
+                out.write(line + "\n")
+            if args.header_insert:  # -H (reference: src/bwa.c:425-466)
+                if args.header_insert.startswith("@"):
+                    out.write(args.header_insert.replace("\\t", "\t")
+                              + "\n")
+                else:
+                    with open(args.header_insert) as hf:
+                        for hl in hf:
+                            if hl.strip():
+                                out.write(hl.rstrip("\n") + "\n")
         n = run_pipeline(records, aligner,
                          opt.chunk_size * max(args.n_threads, 1), out,
                          timings=timings, paired=paired,
@@ -514,6 +567,10 @@ def cmd_align(args) -> int:
                          lookahead=0 if args.no_mt_io else 2)
     finally:
         host_pool.close()
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     st = aligner.stats
     print(f"[{PROG}] done: {n} reads, {st['n_seeds']} seeds, "
           f"{st['n_extensions']} extensions", file=sys.stderr)
@@ -531,7 +588,39 @@ def cmd_align(args) -> int:
                            n_reads_total=n)
     if out is not sys.stdout:
         out.close()
+    if shard is not None:
+        mh.mark_done(args.output, shard.rank)
+        if shard.is_primary:
+            mh.merge_shards(args.output, shard.world,
+                            keep_shards=args.keep_shards)
+            print(f"[{PROG}] merged {shard.world} shards -> {args.output}",
+                  file=sys.stderr)
     return 0
+
+
+def _join(args) -> None:
+    """Join the hosts' Gloo process group at --coordinator; a failed join
+    exits with an error."""
+    from .parallel.multihost import init_distributed
+
+    try:
+        init_distributed(args.coordinator, args.n_hosts, args.host_id)
+    except (RuntimeError, ValueError, OSError) as e:
+        sys.exit(f"[{PROG}] error: joining the hosts at {args.coordinator} "
+                 f"failed: {e}")
+
+
+def _load_native() -> None:
+    """Build and load the native core under a file lock in its build
+    directory, so that processes which start together build it once."""
+    import fcntl
+
+    from .native import loader
+
+    loader._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(loader._BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        loader.try_load()
 
 
 def _interleave(it1, it2):

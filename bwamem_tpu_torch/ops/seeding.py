@@ -33,7 +33,9 @@ lane a lane is compared with in the early kill, and mode "mem" keeps
 what the kill froze, so there the port follows the same schedule on the
 width of the JAX pool (cand_pool slots a read, `pool_reads` reads), grown
 as the JAX overflow retry grows it when the round-1 candidates overflow
-it (grown_cand_pool).
+it (grown_cand_pool); where the retry would end at the pools' caps still
+overflowing, the JAX aligner splits the batch (pool_spills), and the
+port's aligner splits it too.
 """
 from __future__ import annotations
 
@@ -45,7 +47,10 @@ from ..index.device import DeviceFMIndex
 from . import fm as fmops
 
 BIG = 0x3FFFFFFF
-CAND_POOL_CAP = 4096  # the JAX aligner's largest cand_pool (POOL_CAPS)
+# the JAX aligner's largest pools of the two that mode "mem" fills
+# (bwamem_tpu/pipeline/poolstore.py POOL_CAPS): round-1 candidates and
+# expanded seeds, in slots a read; past them it splits the batch
+POOL_CAPS = {"cand_pool": 4096, "seed_pool": 4096}
 # how many walk trips run between checks of the all-dead exit (each check
 # is one device->host sync)
 _EXIT_CHECK = 4
@@ -58,6 +63,9 @@ class SeedConfig:
     # sets the width on which the round-1 backward walk's compaction
     # schedule (r1_schedule, mode "mem") acts
     cand_pool: int = 32
+    # the JAX pool's expanded-seed slots per read: with cand_pool, where
+    # the JAX aligner splits a mode "mem" batch (pool_spills)
+    seed_pool: int = 4
     max_occ: int = 500     # subsample SMEMs above this occurrence count
     mode: str = "smem"     # "smem" | "mem" (-g: keep nested MEMs) |
     #                        "fwdmem" (-u 3: forward-only MEMs)
@@ -515,10 +523,11 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     aligner pads a batch to bucket_count(B)); B by default. Returns flat
     seed arrays sorted by (read, qend, SA rank) — or, with the re-seed
     rounds (cfg.reseed in mode "smem"), by (read, qbeg, qend, SA rank):
-    read_id, qbeg, qend, rbeg (doubled coordinates), n_occ; and
-    cand_pool, an int: the candidate slots a read of the pool the mode
+    read_id, qbeg, qend, rbeg (doubled coordinates), n_occ; and two
+    ints: cand_pool, the candidate slots a read of the pool the mode
     "mem" walk compacted on (cfg.cand_pool, or the JAX overflow retry's
-    grown_cand_pool when the round-1 candidates overflow it)."""
+    grown_cand_pool when the round-1 candidates overflow it), and c_need,
+    the round-1 candidates' count."""
     if cfg.mode not in ("smem", "mem", "fwdmem"):
         raise ValueError(f"unknown seeding mode {cfg.mode!r}")
     reads = reads.to(torch.int32)
@@ -546,9 +555,10 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     end = torch.arange(NP, dtype=torch.int32, device=dev).expand(B, NP)
     idx, (start, end, k, s) = _compact(emit, start, end, k, s)
     rid = (idx // NP).to(torch.int32)
+    c_need = idx.shape[0]
     cand_pool = cfg.cand_pool
     if cfg.mode == "mem":
-        cand_pool = grown_cand_pool(idx.shape[0], pool_reads or B, cand_pool)
+        cand_pool = grown_cand_pool(c_need, pool_reads or B, cand_pool)
     if cfg.mode == "fwdmem":
         # forward-only MEMs: no left extension, the segments are disjoint
         qbeg = start
@@ -615,6 +625,7 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         keep = torch.ones_like(rid, dtype=torch.bool)
     out = _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
     out["cand_pool"] = cand_pool
+    out["c_need"] = c_need
     return out
 
 
@@ -623,15 +634,31 @@ def grown_cand_pool(c_need: int, pool_reads: int, cand_pool: int) -> int:
     candidates (c_need of them) overflow its pool of pool_reads x
     cand_pool slots (bwamem_tpu/pipeline/aligner.py's overflow retry):
     m = ceil(c_need / pool) > 1 grows cand_pool by the power of two
-    2^bit_length(max(m - 1, 1)), at most to CAND_POOL_CAP. c_need does
-    not depend on the pool, so the grown pool holds every candidate and
-    a second retry never grows it again; at the cap the JAX aligner
-    splits the batch instead, which the port does not follow."""
+    2^bit_length(max(m - 1, 1)), at most to POOL_CAPS["cand_pool"].
+    c_need does not depend on the pool, so the grown pool holds every
+    candidate and a second retry never grows it again; at the cap the
+    JAX aligner splits the batch instead (pool_spills)."""
+    cap = POOL_CAPS["cand_pool"]
     slots = pool_reads * cand_pool
     m = -(-c_need // slots) if slots > 0 else 1
-    if m <= 1 or cand_pool >= CAND_POOL_CAP:
+    if m <= 1 or cand_pool >= cap:
         return cand_pool
-    return min(cand_pool << max(m - 1, 1).bit_length(), CAND_POOL_CAP)
+    return min(cand_pool << max(m - 1, 1).bit_length(), cap)
+
+
+def pool_spills(c_need: int, n_seeds: int, pool_reads: int,
+                cand_pool: int, seed_pool: int) -> bool:
+    """Whether the JAX aligner's retry loop ends with a pool at its cap
+    still overflowing on a mode "mem" batch of pool_reads reads, so that
+    it halves the batch (bwamem_tpu/pipeline/aligner.py's spill path):
+    the retry grows each overflowing pool up to its cap, so it ends with
+    c_need round-1 candidates beyond pool_reads x max(cand_pool, cap) or
+    n_seeds expanded seeds beyond pool_reads x max(seed_pool, cap) (a
+    pool that starts above its cap does not grow). n_seeds is counted on
+    the final cand_pool, as the loop's last round counts it."""
+    return (c_need > pool_reads * max(cand_pool, POOL_CAPS["cand_pool"])
+            or n_seeds > pool_reads * max(seed_pool,
+                                          POOL_CAPS["seed_pool"]))
 
 
 def bowtie_seed_batch(fm: DeviceFMIndex, reads, lens, seed_len: int,

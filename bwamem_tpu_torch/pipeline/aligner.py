@@ -20,6 +20,12 @@ Port of the native path of bwamem_tpu/pipeline/aligner.py:MemAligner:
            bounds on the host, ONE local-SW launch per chunk on windows
            gathered on the device (pipeline/pairing.py), results applied
            on the host; native pairing + SAM text
+  mesh:    with a parallel/sharded.Mesh, seeding and the extension run
+           on each of its devices over contiguous ranges of reads and
+           jobs (the index replicated); mate rescue and the filters stay
+           on the first device, as in the JAX package
+  without the native core: the per-seed-object path collects, and SE
+           finalization runs on samgen (the JAX package's own route)
 
 The reads buffer uploaded for seeding travels WITH its batch (in the seed
 arrays dict), never as aligner state: run_pipeline runs two collector
@@ -38,11 +44,12 @@ from ..index.format import FMIndex
 from ..ops.extend import (ExtendParams, end_choice, extend_batch_auto,
                           extend_choose_desc)
 from ..ops import fm as fmops
-from ..ops.seeding import SeedConfig, bowtie_seed_batch, smem_seed_batch
+from ..ops.seeding import (SeedConfig, bowtie_seed_batch, pool_spills,
+                           smem_seed_batch)
 from ..utils.shapes import bucket_count, bucket_len, bucket_read_len
 from .chain import Chain
 from .options import FILTER_COEF, MEM_F_NO_RESCUE, MemOptions, cal_max_gap
-from .regions import AlnReg, mem_sort_dedup_patch
+from .regions import AlnReg, mem_mark_primary_se, mem_sort_dedup_patch
 
 _LONG_READ = 500  # reads this long turn the per-seed SW filter on
 LEFT, RIGHT = 0, 1
@@ -181,14 +188,15 @@ def chain2aln_jobs(opt: MemOptions, idx: FMIndex, l_query: int,
 
 def run_extension_jobs(fm_params: ExtendParams, mat, jobs: list[ExtJob],
                        pen_clip: int, bucket_bounds=(64, 192, 1 << 30),
-                       device="cuda") -> None:
-    """Execute all jobs on `device`, bucketed by query length (the
-    generalization of the reference's SHORT/LONG split,
-    src/bntseq.h:85-99), then scatter chosen (score, qle, tle) into
-    reg.part[side]. The tiles are materialized on the host; a bucket's
-    widths are the buckets of its longest query and target, so long
-    targets reach the dense kernel's wide route. Job counts are not
-    padded: the launch takes any count."""
+                       device="cuda", mesh=None) -> None:
+    """Execute all jobs on `device` (or over `mesh`, a
+    parallel/sharded.Mesh: each bucket's jobs split by contiguous range
+    over its devices), bucketed by query length (the generalization of
+    the reference's SHORT/LONG split, src/bntseq.h:85-99), then scatter
+    chosen (score, qle, tle) into reg.part[side]. The tiles are
+    materialized on the host; a bucket's widths are the buckets of its
+    longest query and target, so long targets reach the dense kernel's
+    wide route. Job counts are not padded: the launch takes any count."""
     if not jobs:
         return
     buckets: dict[int, list[ExtJob]] = {}
@@ -213,7 +221,14 @@ def run_extension_jobs(fm_params: ExtendParams, mat, jobs: list[ExtJob],
             ql[i], tl[i], h0[i] = len(j.query), len(j.target), j.h0
         Qt, Tt, qlt, tlt, h0t = (torch.from_numpy(a).to(device)
                                  for a in (Q, T, ql, tl, h0))
-        out = extend_batch_auto(Qt, Tt, qlt, tlt, h0t, mat_t, fm_params)
+        if mesh is not None:
+            from ..parallel.sharded import sharded_extend_batch
+
+            out = sharded_extend_batch(mesh, Qt, Tt, qlt, tlt, h0t, mat_t,
+                                       fm_params)
+        else:
+            out = extend_batch_auto(Qt, Tt, qlt, tlt, h0t, mat_t,
+                                    fm_params)
         sc, qe, te = torch.stack(end_choice(
             out["score"], out["qle"], out["tle"], out["gscore"],
             out["gtle"], qlt, pen_clip)).cpu().numpy()
@@ -283,14 +298,22 @@ class MemAligner:
     """Index in device memory, batched device stages, host post-processing.
     Single- and paired-end reads of any length, every seeding mode (SMEM +
     re-seed rounds, -g, -u 2/3/4), the per-seed filters, the native host
-    core or the per-seed-object path."""
+    core or the per-seed-object path.
+
+    mesh: an optional parallel/sharded.Mesh. Seeding and the extension
+    then run data parallel over its devices (the index replicated, reads
+    and jobs split by contiguous range), and `device` is the mesh's
+    first device, where mate rescue and the filters run."""
 
     def __init__(self, opt: MemOptions, idx: FMIndex,
                  fm: DeviceFMIndex | None = None,
-                 seed_cfg: SeedConfig | None = None, device="cuda"):
+                 seed_cfg: SeedConfig | None = None, device="cuda",
+                 mesh=None):
         self.opt = opt
         self.idx = idx
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None
+                                   else mesh.devices[0])
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available")
         self.stats = {"n_reads": 0, "n_seeds": 0, "n_extensions": 0}
@@ -298,6 +321,11 @@ class MemAligner:
         self.timings = None
         self.pes_fixed = None  # -I fixed insert-size model
         self.fm = fm or DeviceFMIndex.from_host(idx, self.device)
+        self.fms = None
+        if mesh is not None:
+            from ..parallel.sharded import replicate_index
+
+            self.fms = replicate_index(mesh, self.fm)
         self.seed_cfg = seed_cfg or SeedConfig(
             min_seed_len=opt.min_seed_len, max_occ=opt.max_occ,
             reseed=opt.full_reseed, split_factor=opt.split_factor,
@@ -318,7 +346,13 @@ class MemAligner:
 
     def seed_batch_arrays(self, seqs: list[np.ndarray]) -> dict:
         """Device seeding; returns flat seed arrays (qbeg/qend/rbeg/n_occ)
-        + per-read bounds, plus the uploaded reads buffer."""
+        + per-read bounds, plus the uploaded reads buffer.
+
+        Mode "mem" (-g) follows the JAX aligner's spill path: where its
+        overflow retry would end with a pool at its cap still overflowing
+        (ops/seeding.pool_spills), it halves the batch and seeds each half
+        on its own pool width, recursively. A lone read past the caps keeps
+        all its seeds here (the JAX aligner truncates them)."""
         B = len(seqs)
         L = bucket_read_len(max(len(s) for s in seqs))
         reads = np.full((B, L), 4, np.int8)
@@ -329,14 +363,21 @@ class MemAligner:
         reads_t = torch.from_numpy(reads).to(self.device)
         lens_t = torch.from_numpy(lens).to(self.device)
         opt = self.opt
-        # the JAX aligner scales its candidate pool with the read bucket
-        # (the next power of two of ceil(L / 192), at most 4096 slots a
-        # read) and keeps it for later batches; -g's compaction schedule
-        # acts on that pool's width
+        # the JAX aligner scales its candidate and seed pools with the read
+        # bucket (the next power of two of ceil(L / 192), at most 4096
+        # slots a read) and keeps them for later batches; -g's compaction
+        # schedule acts on the candidate pool's width, and both pools' caps
+        # decide where it splits a batch
         need = -(-L // 192)
-        cand = min(self.seed_cfg.cand_pool << (need - 1).bit_length(), 4096)
-        if self.seed_cfg.cand_pool > 0 and cand > self.seed_cfg.cand_pool:
-            self.seed_cfg = replace(self.seed_cfg, cand_pool=cand)
+        scale = 1 << (need - 1).bit_length()
+        if scale > 1 and self.seed_cfg.cand_pool > 0:
+            cfg = self.seed_cfg
+            self.seed_cfg = replace(
+                cfg, cand_pool=max(cfg.cand_pool,
+                                   min(cfg.cand_pool * scale, 4096)),
+                seed_pool=max(cfg.seed_pool,
+                              min(cfg.seed_pool * scale, 4096)))
+        spill = False
         with self._span("seed_device"):
             if opt.seed_type in (2, 4):
                 ktab_k = 8 if opt.min_seed_len > 8 else 0
@@ -347,16 +388,48 @@ class MemAligner:
                     ktab=(fmops.get_kmer_table(self.fm, ktab_k)
                           if ktab_k else None), ktab_k=ktab_k)
             else:
-                # the JAX aligner pads the batch to bucket_count(B)
-                out = smem_seed_batch(self.fm, reads_t, lens_t,
-                                      self.seed_cfg,
-                                      pool_reads=bucket_count(B))
+                if self.mesh is None:
+                    # the JAX aligner pads the batch to bucket_count(B)
+                    pool_reads = bucket_count(B)
+                    out = smem_seed_batch(self.fm, reads_t, lens_t,
+                                          self.seed_cfg,
+                                          pool_reads=pool_reads)
+                    counts = [(out["c_need"], len(out["rbeg"]))]
+                else:
+                    # padded to bucket_count(B) here, then to the mesh
+                    # multiple (shard_reads), as the JAX aligner pads
+                    from ..parallel.sharded import sharded_seed_batch
+
+                    pad = bucket_count(B) - B
+                    out = sharded_seed_batch(
+                        self.mesh, self.fms,
+                        np.pad(reads, ((0, pad), (0, 0)), constant_values=4),
+                        np.pad(lens, (0, pad)), self.seed_cfg)
+                    counts = out.pop("counts")
+                    pool_reads = out.pop("pool_reads")
                 # -g: the pool its round-1 candidates grew, kept for later
                 # batches as the JAX aligner keeps its retry's
                 cand = out.pop("cand_pool")
+                out.pop("c_need")
                 if cand != self.seed_cfg.cand_pool:
                     self.seed_cfg = replace(self.seed_cfg, cand_pool=cand)
+                spill = self.seed_cfg.mode == "mem" and any(
+                    pool_spills(c, n, pool_reads, cand,
+                                self.seed_cfg.seed_pool) for c, n in counts)
             host = {k: v.cpu().numpy() for k, v in out.items()}
+        if spill and B > 1:
+            import sys
+
+            mid = B // 2
+            print(f"[bwamem-tpu-torch] seed pool at cap; splitting batch "
+                  f"{B} -> {mid}+{B - mid}", file=sys.stderr)
+            lo = self.seed_batch_arrays(seqs[:mid])
+            hi = self.seed_batch_arrays(seqs[mid:])
+            bounds = np.concatenate(
+                [lo["bounds"][:-1], lo["bounds"][-1] + hi["bounds"]])
+            return dict(**{k: np.concatenate([lo[k], hi[k]])
+                           for k in ("qbeg", "qend", "rbeg", "n_occ")},
+                        bounds=bounds, reads_dev=(B, L, reads_t))
         self.stats["n_seeds"] += len(host["rbeg"])
         bounds = np.searchsorted(host["read_id"], np.arange(B + 1))
         return dict(qbeg=host["qbeg"], qend=host["qend"], rbeg=host["rbeg"],
@@ -378,16 +451,15 @@ class MemAligner:
     def _collect_native(self, seqs, seeds):
         """Native chaining AND chain2aln job construction (flat arrays, no
         per-seed Python objects), the device extension, then the merge and
-        native dedup."""
+        native dedup. Returns None when the native core is not available
+        (the caller takes the per-seed-object path)."""
         opt, idx = self.opt, self.idx
         from ..native import loader
         from .chain import chain_batch_raw
 
         lib = loader.try_load()
         if lib is None:
-            raise NotImplementedError(
-                "the native C++ core failed to build or load; the Python "
-                "fallback path is not ported (ROADMAP queue A)")
+            return None
         lqs = [len(s) for s in seqs]
         with self._span("chain_native"):
             raw = chain_batch_raw(opt, idx, lqs, None, seed_arrays=seeds)
@@ -548,12 +620,20 @@ class MemAligner:
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
         with self._span("ext_device"):
-            stacked = extend_choose_desc(
-                self.fm, reads_dev, up(J["read"][:nJ], np.int32),
-                up(J["qstart"][:nJ], np.int32), up(qlen, np.int32),
-                up(J["tstart"][:nJ], np.int64), up(tlen, np.int32),
-                up(J["dir"][:nJ], np.int8), up(J["h0"][:nJ], np.int32),
-                self._mat, self.ext_params, int(opt.pen_clip5), QMAX, TMAX)
+            desc = (up(J["read"][:nJ], np.int32),
+                    up(J["qstart"][:nJ], np.int32), up(qlen, np.int32),
+                    up(J["tstart"][:nJ], np.int64), up(tlen, np.int32),
+                    up(J["dir"][:nJ], np.int8), up(J["h0"][:nJ], np.int32))
+            if self.mesh is None:
+                stacked = extend_choose_desc(
+                    self.fm, reads_dev, *desc, self._mat, self.ext_params,
+                    int(opt.pen_clip5), QMAX, TMAX)
+            else:
+                from ..parallel.sharded import sharded_extend_choose_desc
+
+                stacked = sharded_extend_choose_desc(
+                    self.mesh, self.fms, reads_dev, *desc, self._mat,
+                    self.ext_params, int(opt.pen_clip5), QMAX, TMAX)
             sc, qe, te = stacked.cpu().numpy()
         jreg = J["reg"][:nJ]
         jside = J["side"][:nJ]
@@ -572,11 +652,15 @@ class MemAligner:
         if self.opt.min_chain_weight > 0 or self.opt.verbose >= 4:
             return self._collect_objects(seqs, seed_arr)
         with self._span("native_total"):
-            return self._collect_native(seqs, seed_arr)
+            fast = self._collect_native(seqs, seed_arr)
+        if fast is not None:
+            return fast
+        return self._collect_objects(seqs, seed_arr)
 
     def _collect_objects(self, seqs, seed_arr):
         """The per-seed-object path (the JAX twin's fallback body of
-        collect_regs_batch): chains as Python objects, the per-seed filter,
+        collect_regs_batch, taken for -W and -v 4 and when the native core
+        is not available): chains as Python objects, the per-seed filter,
         extension jobs built per chain, one launch per query-length bucket,
         merge and dedup per read."""
         from .chain import chain_batch
@@ -619,7 +703,7 @@ class MemAligner:
         self.stats["n_extensions"] += len(jobs)
         with self._span("ext_device"):
             run_extension_jobs(self.ext_params, opt.mat, jobs, opt.pen_clip5,
-                               device=self.device)
+                               device=self.device, mesh=self.mesh)
 
         out: list[list[AlnReg]] = []
         for b, seq in enumerate(seqs):
@@ -665,19 +749,26 @@ class MemAligner:
 
     def emit_sam_batch(self, names, seqs, quals, per_read_regs,
                        n_processed: int = 0, comments=None) -> list[str]:
-        """Mark-primary + SAM text per read in ONE native call."""
+        """Mark-primary + SAM text per read in ONE native call, or, without
+        the native core, mem_mark_primary_se and samgen's mem_reg2sam_batch
+        (the JAX package's Python route, with the same output)."""
         from ..native import loader
+        from .samgen import mem_reg2sam_batch
 
         opt = self.opt
         cms = comments if (comments and opt.copy_comment) else None
+        rg = getattr(opt, "rg_id", None)
         lib = loader.try_load()
-        if lib is None:
-            raise NotImplementedError(
-                "the native C++ core failed to build or load")
-        blob = loader.finalize_se_native(
-            lib, opt, self.idx, names, seqs, quals, per_read_regs,
-            n_processed, cms, getattr(opt, "rg_id", None))
-        return blob.decode().splitlines()
+        if lib is not None:
+            blob = loader.finalize_se_native(
+                lib, opt, self.idx, names, seqs, quals, per_read_regs,
+                n_processed, cms, rg)
+            return blob.decode().splitlines()
+        marked = [mem_mark_primary_se(opt, per_read_regs[b],
+                                      n_processed + b)[0]
+                  for b in range(len(seqs))]
+        return mem_reg2sam_batch(opt, self.idx, names, seqs, quals, marked,
+                                 comments=cms, rg_id=rg)
 
     def align_batch(self, names: list[str], seqs: list[np.ndarray],
                     quals: list[str | None] | None = None,

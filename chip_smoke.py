@@ -72,9 +72,30 @@ Phases (each prints its own lines; any failure exits nonzero):
      first 512 reads must equal --device cpu's;
  11. the probe, `python -m bwamem_tpu_torch.tools.int16_probe` (its main,
      in this process, with K4's launch count reset around it): six PASS
-     lines, its verdict, exit 0.
-Then one JSON line for the kernels, the card line, and the device JSON as
-the last line.
+     lines, its verdict, exit 0;
+ 12. the fused step (models/mem.device_align_step) on phase 4's first
+     16384 reads (150 bp: K1 must launch, K3 must not) and on phase 6's
+     4096 reads of 1 kb (the band window narrower than the row: K3 must
+     launch), with the counts set to 0 just before each first run: warm
+     reads/s (median of 3), has_seed share and share at the simulated
+     origin; each run's outputs on its first 1024 reads, and a batch of
+     the first 128 reads, equal to --device cpu's;
+ 13. a mesh of every visible card (parallel/sharded.make_mesh; one card
+     here): sharded_align_step == device_align_step on phase 12's 150 bp
+     batch; MemAligner(mesh=...) on phase 4's first 4096 reads and phase
+     5's first 2048 pairs gives the SAM of MemAligner() without a mesh;
+     then the route without the native core (loader.try_load patched to
+     None) on 256 reads and 128 pairs, and the index forced wide on 1024
+     reads, each with the SAM of the native, narrow route;
+ 14. two hosts: two CLI processes started together (`align --n-hosts 2
+     --host-id r --coordinator 127.0.0.1:<free port>`) on phase 4's first
+     1024 reads, and beside them two on phase 5's first 512 pairs with
+     -I 350,50, on the card and then with --device cpu: the merged SAM
+     (apart from @PG) the same on both, no shard file left; how many
+     records differ from one host's is printed (each host restarts the
+     read counter that breaks score ties), with each host's launches.
+Phases 12-14 print their seconds. Then one JSON line for the kernels,
+the card line, and the device JSON as the last line.
 Needs one CUDA device; exits nonzero without one.
 """
 from __future__ import annotations
@@ -1052,9 +1073,12 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
             ("long", n_long, 1000, 0.01, 0.002, 0.002),
             ("r250", n_250, 250, 0.01, 0.0, 0.0),
             ("pb", n_pb, 1000, 0.04, 0.03, 0.03)):
-        write_fastq(os.path.join(d, f"{name}.fq"), simulate_reads(
-            rng, contigs, n, read_len=length, sub=sub, ins=ins, dele=dele,
-            prefix=name))
+        reads = simulate_reads(rng, contigs, n, read_len=length, sub=sub,
+                               ins=ins, dele=dele, prefix=name)
+        write_fastq(os.path.join(d, f"{name}.fq"), reads)
+        # each read's simulated origin, for phase 12's at-origin share
+        with open(os.path.join(d, f"{name}.truth"), "w") as f:
+            f.writelines(f"{r.name}\t{r.pos}\t{r.strand}\n" for r in reads)
     _head(os.path.join(d, "reads.fq"), os.path.join(d, "shd.fq"), n_shd)
     out = {}
     phase("6 long reads (1 kb, default flags)")
@@ -1162,6 +1186,379 @@ def probe_phase(device: str = "cuda") -> int:
     return launches
 
 
+def _batch(path: str, n: int):
+    """(names, code arrays) of the first n records of a FASTQ file."""
+    from bwamem_tpu_torch.io.fastx import read_fastx
+
+    recs = [r for _, r in zip(range(n), read_fastx(path))]
+    return [r.name for r in recs], [r.seq for r in recs]
+
+
+def _reads_tensors(seqs, device):
+    """The (B, L) reads and (B,) lengths the fused step takes, L the
+    aligner's seeding bucket of the longest read."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.utils.shapes import bucket_read_len
+
+    L = bucket_read_len(max(len(s) for s in seqs))
+    reads = np.full((len(seqs), L), 4, np.int8)
+    lens = np.zeros(len(seqs), np.int32)
+    for i, q in enumerate(seqs):
+        reads[i, :len(q)] = q
+        lens[i] = len(q)
+    return (torch.from_numpy(reads).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+STEP_KEYS = ("score", "qb", "qe", "rb", "re", "has_seed")
+
+
+def _same_step(got: dict, want: dict, n: int, what: str,
+               n_seeds: bool = False) -> None:
+    """The step's per-read outputs of the first n reads (and n_seeds, on
+    the same batch) equal, or exit."""
+    import torch
+
+    for k in STEP_KEYS + (("n_seeds",) if n_seeds else ()):
+        a, b = got[k].cpu(), want[k].cpu()
+        if k != "n_seeds":
+            a, b = a[:n], b[:n]
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:1].tolist()
+            raise SystemExit(f"{what}: {k} differs (first at {bad})")
+
+
+def _counts():
+    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
+                                              swalign_kernel)
+
+    return dict(K1=extend_kernel.LAUNCHES, K2=swalign_kernel.LAUNCHES,
+                K3=extend_banded.LAUNCHES)
+
+
+def _reset_counts() -> None:
+    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
+                                              swalign_kernel)
+
+    extend_kernel.LAUNCHES = swalign_kernel.LAUNCHES = 0
+    extend_banded.LAUNCHES = 0
+
+
+def fused_step_phase(fms: dict, tag: str, names, seqs, truth: dict,
+                     need: str, absent: str, heads=(1024, 128),
+                     device: str = "cuda") -> dict:
+    """The fused step (models/mem.device_align_step) on one batch on
+    `device`: the kernels' counts set to 0 just before its first run and
+    read just after (`need` must have launched, `absent` not); then the
+    median of 3 warm runs, the `need` launch of the first run replayed
+    alone (capture_calls; median of 5), the has_seed share and the share
+    within 5 bp of the simulated origin (truth: name -> (pos, strand); no
+    gate); then
+    the first heads[0] reads' outputs against the CPU's on those reads,
+    and a batch of the first heads[1] reads on `device` against the CPU's
+    on it (n_seeds too). fms: device -> DeviceFMIndex. Returns the counts
+    and reads/s."""
+    import torch
+
+    from bwamem_tpu_torch.models.mem import device_align_step
+
+    reads, lens = _reads_tensors(seqs, device)
+
+    def run(r, ln, dev):
+        out = device_align_step(fms[dev], r, ln)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    with capture_calls(need) as calls:
+        out = run(reads, lens, device)
+    cold = time.perf_counter() - t0
+    counts = _counts()
+    if device == "cuda" and (counts[need] < 1
+                             or (absent and counts[absent] > 0)):
+        raise SystemExit(f"{tag}: the fused step launched {counts}; {need} "
+                         f"must launch" + (f" and {absent} must not"
+                                           if absent else ""))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run(reads, lens, device)
+        times.append(time.perf_counter() - t0)
+    warm = statistics.median(times)
+    B = len(seqs)
+    has = out["has_seed"].cpu()
+    l2 = 2 * int(fms[device].l_pac)
+    rb, re_, qb, qe = (out[k].cpu().tolist() for k in ("rb", "re", "qb",
+                                                       "qe"))
+    at_origin = 0
+    for i, name in enumerate(names):
+        if not has[i] or name not in truth:
+            continue
+        pos, strand = truth[name]
+        start = (rb[i] - qb[i] if rb[i] < l2 // 2
+                 else l2 - re_[i] - (len(seqs[i]) - qe[i]))
+        at_origin += (rb[i] >= l2 // 2) == bool(strand) and abs(
+            start - pos) <= 5
+    if calls and device == "cuda":
+        # the step's extension alone: its captured launch, replayed
+        *args, p = calls[0]
+        kern = getattr(_kmod(need), CAPTURED[need][1])
+        ext_ms = _median_ms(lambda: kern(*args, p))
+        print(f"{tag}: {need} on the step's captured launch: "
+              f"{args[0].shape[0]} jobs, QMAX {args[0].shape[1]}, TMAX "
+              f"{args[1].shape[1]}: {ext_ms:.3f} ms (median of 5) of the "
+              f"step's warm {warm * 1e3:.1f} ms", flush=True)
+    print(f"{tag}: fused step --device {device}: {B} reads of "
+          f"{reads.shape[1]} columns; cold {cold:.3f} s, warm "
+          f"{statistics.median(times):.4f} s (median of 3: "
+          f"{', '.join(f'{t:.4f}' for t in times)}) = {B / warm:.1f} "
+          f"reads/s; has_seed {float(has.float().mean()):.4f}; at the "
+          f"simulated origin {at_origin / B:.4f}; n_seeds "
+          f"{int(out['n_seeds'])}; launches K1 {counts['K1']}, K3 "
+          f"{counts['K3']}", flush=True)
+    t0 = time.perf_counter()
+    n, m = heads
+    _same_step(out, run(reads[:n].cpu(), lens[:n].cpu(), "cpu"), n,
+               f"{tag}: first {n} reads, {device} vs cpu")
+    _same_step(run(reads[:m], lens[:m], device),
+               run(reads[:m].cpu(), lens[:m].cpu(), "cpu"), m,
+               f"{tag}: a batch of {m} reads, {device} vs cpu", True)
+    print(f"{tag}: first {n} reads and a batch of {m}: {device} == cpu "
+          f"(CPU runs {time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(counts, reads_per_s=B / warm)
+
+
+def mesh_phase(d: str, fm, device: str = "cuda", n_chips: int = 0,
+               sizes=(4096, 2048), step_reads: int = 16384,
+               no_native=(256, 128), n_wide: int = 1024) -> dict:
+    """Phase 13: a mesh of every visible card (make_mesh, one card
+    today). sharded_align_step equals device_align_step on the first
+    step_reads reads of reads.fq; MemAligner(mesh=...) gives the SAM of
+    MemAligner() on the first sizes[0] reads and sizes[1] pairs; then,
+    without a mesh, the route without the native core (loader.try_load
+    patched to None) equals the native route on no_native reads and
+    pairs, and the index forced wide equals the narrow one on n_wide
+    reads. The kernels' counts are read around the mesh's runs. Returns
+    them with the mesh's reads/s."""
+    import dataclasses
+
+    from bwamem_tpu_torch.index.format import FMIndex
+    from bwamem_tpu_torch.models.mem import device_align_step
+    from bwamem_tpu_torch.native import loader
+    from bwamem_tpu_torch.parallel import sharded
+    from bwamem_tpu_torch.pipeline.aligner import MemAligner
+    from bwamem_tpu_torch.pipeline.options import MemOptions
+
+    idx = FMIndex.load(os.path.join(d, "idx.bmt"))
+    mesh = sharded.make_mesh(n_chips or None, device)
+    names, seqs = _batch(os.path.join(d, "reads.fq"), max(sizes[0],
+                                                          step_reads))
+    reads, lens = _reads_tensors(seqs[:step_reads], device)
+    step, total = sharded.sharded_align_step(mesh)(
+        sharded.replicate_index(mesh, fm),
+        *sharded.shard_reads(mesh, reads, lens)[:2])
+    one = device_align_step(fm, reads, lens)
+    _same_step(step, one, step_reads, "sharded_align_step vs the step")
+    if total != int(one["n_seeds"]):
+        raise SystemExit(f"mesh seeds {total} != {int(one['n_seeds'])}")
+    print(f"mesh of {mesh.size} ({', '.join(map(str, mesh.devices))}): "
+          f"sharded_align_step == device_align_step on {step_reads} reads, "
+          f"{total} seeds", flush=True)
+
+    pnames, pseqs = [], []
+    for a, b in zip(zip(*_batch(os.path.join(d, "r1.fq"), sizes[1])),
+                    zip(*_batch(os.path.join(d, "r2.fq"), sizes[1]))):
+        pnames += [a[0], b[0]]
+        pseqs += [a[1], b[1]]
+
+    def sam(al, n_se, n_pe):
+        return (al.align_batch(names[:n_se], seqs[:n_se]),
+                al.align_pairs_batch(pnames[:2 * n_pe], pseqs[:2 * n_pe]))
+
+    opt = MemOptions()
+    want = sam(MemAligner(opt, idx, fm=fm, device=device), *sizes)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = sam(MemAligner(opt, idx, fm=fm, device=device, mesh=mesh), *sizes)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    if got != want:
+        raise SystemExit("MemAligner(mesh=...) SAM differs from one device's")
+    if device == "cuda" and (counts["K1"] < 1 or counts["K2"] < 1):
+        raise SystemExit(f"the mesh's aligner launched {counts}")
+    rate = (sizes[0] + 2 * sizes[1]) / wall
+    print(f"MemAligner(mesh) SE {sizes[0]} reads + PE {sizes[1]} pairs: SAM "
+          f"== one device's ({len(got[0]) + len(got[1])} lines) in "
+          f"{wall:.2f} s = {rate:.1f} reads/s; launches K1 {counts['K1']}, "
+          f"K2 {counts['K2']}, K3 {counts['K3']}", flush=True)
+
+    t0 = time.perf_counter()
+    want = sam(MemAligner(opt, idx, fm=fm, device=device), *no_native)
+    real = loader.try_load
+    loader.try_load = lambda: None
+    try:
+        got = sam(MemAligner(opt, idx, fm=fm, device=device), *no_native)
+    finally:
+        loader.try_load = real
+    if got != want:
+        raise SystemExit("the SAM without the native core differs")
+    print(f"without the native core: SE {no_native[0]} reads + PE "
+          f"{no_native[1]} pairs: SAM == the native route's "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    narrow = MemAligner(opt, idx, fm=fm, device=device)
+    wide = MemAligner(opt, idx, fm=dataclasses.replace(fm, wide=True),
+                      device=device)
+    if (wide.align_batch(names[:n_wide], seqs[:n_wide])
+            != narrow.align_batch(names[:n_wide], seqs[:n_wide])):
+        raise SystemExit("the SAM on the index forced wide differs")
+    print(f"index forced wide: {n_wide} reads: SAM == the narrow index's "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(counts, reads_per_s=rate)
+
+
+def counted_cli(argv) -> int:
+    """The CLI's main on argv, then this process's kernel launches on
+    stderr (phase 14's hosts run it in their own processes)."""
+    from bwamem_tpu_torch.cli import main
+
+    rc = main(argv)
+    print(f"launches {json.dumps(_counts())}", file=sys.stderr, flush=True)
+    return rc
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _run_hosts(cmds: dict, cwd: str, env: dict, logdir: str,
+               timeout: float) -> dict:
+    """Start every command of cmds (key -> argv) at once and wait for all;
+    stderr goes to a file each. Returns key -> (return code, seconds to
+    its exit, stderr text); kills what is left on a timeout or error."""
+    t0 = time.perf_counter()
+    procs, ends, logs = {}, {}, {}
+    try:
+        for key, argv in cmds.items():
+            logs[key] = open(os.path.join(logdir, f"host_{key}.err"), "w+")
+            procs[key] = subprocess.Popen(argv, cwd=cwd, env=env,
+                                          stdout=subprocess.DEVNULL,
+                                          stderr=logs[key])
+        while len(ends) < len(procs):
+            if time.perf_counter() - t0 > timeout:
+                raise SystemExit(f"hosts still running after {timeout} s")
+            for key, p in procs.items():
+                if key not in ends and p.poll() is not None:
+                    ends[key] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for key, f in logs.items():
+        f.seek(0)
+        out[key] = (procs[key].returncode, ends[key], f.read())
+        f.close()
+    return out
+
+
+def hosts_phase(d: str, device: str = "cuda", sizes=(1024, 512),
+                timeout: float = 600) -> dict:
+    """Phase 14: two hosts (`align --n-hosts 2 --host-id r --coordinator
+    127.0.0.1:<port>`, two processes started together) on the first
+    sizes[0] reads of reads.fq and, at the same time, two more on the
+    first sizes[1] pairs with -I 350,50; on `device` and then with
+    --device cpu. Each case's merged SAM (apart from @PG) must be the
+    same on both, and the shard files gone. Prints how many records
+    differ from a one-host run on the same reads (each host restarts the
+    read counter that breaks score ties; no gate), and each host's kernel
+    launches. Returns the hosts' reads/s on `device` for SE and PE (the
+    reads over the seconds until the case's second host exited, the
+    other case's hosts running beside them)."""
+    from bwamem_tpu_torch.cli import main
+
+    _head(os.path.join(d, "reads.fq"), os.path.join(d, "mh.fq"), sizes[0])
+    _head(os.path.join(d, "r1.fq"), os.path.join(d, "mh1.fq"), sizes[1])
+    _head(os.path.join(d, "r2.fq"), os.path.join(d, "mh2.fq"), sizes[1])
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    cases = {"se": (["mh.fq"], [], sizes[0]),
+             "pe": (["mh1.fq", "mh2.fq"], ["-I", "350,50"], 2 * sizes[1])}
+    rates, merged = {}, {}
+    for dev in dict.fromkeys((device, "cpu")):
+        cmds = {}
+        for case, (files, flags, _) in cases.items():
+            port = _free_port()
+            for r in range(2):
+                cmds[case, r] = [
+                    sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                    "chip_smoke.counted_cli(sys.argv[1:]))", "align",
+                    "--device", dev, "-t", "1", *flags,
+                    os.path.join(d, "idx"),
+                    *(os.path.join(d, f) for f in files), "-o",
+                    os.path.join(d, f"hosts_{case}_{dev}.sam"), "--n-hosts",
+                    "2", "--host-id", str(r), "--coordinator",
+                    f"127.0.0.1:{port}"]
+        # CPU hosts share the machine's cores rather than each spinning a
+        # thread a core (GPU hosts leave the CPU to the one that runs)
+        threads = max(1, (os.cpu_count() or len(cmds)) // len(cmds))
+        res = _run_hosts(cmds, repo, dict(env, OMP_NUM_THREADS=str(threads))
+                         if dev == "cpu" else env, d, timeout)
+        for (case, r), (rc, _, err) in res.items():
+            if rc != 0:
+                raise SystemExit(f"host {r} ({case}, {dev}) exited {rc}:"
+                                 f"\n{err[-2000:]}")
+        for case, (_, _, n_reads) in cases.items():
+            out = os.path.join(d, f"hosts_{case}_{dev}.sam")
+            left = [f for f in os.listdir(d)
+                    if f.startswith(os.path.basename(out) + ".shard")]
+            if left:
+                raise SystemExit(f"shard files left: {left}")
+            merged[case, dev] = _records(out)
+            n = sum(not ln.startswith("@") for ln in merged[case, dev])
+            wall = max(res[case, r][1] for r in range(2))
+            launches = [next((ln.split(" ", 1)[1]
+                              for ln in res[case, r][2].splitlines()
+                              if ln.startswith("launches ")), "?")
+                        for r in range(2)]
+            rates[case, dev] = n_reads / wall
+            print(f"two hosts {case} --device {dev}: {n} records in "
+                  f"{wall:.2f} s wall (two processes, start-up included, "
+                  f"beside the other case's two) = {n_reads / wall:.1f} "
+                  f"reads/s; launches per host {'; '.join(launches)}",
+                  flush=True)
+    for case, (files, flags, _) in cases.items():
+        got, want = merged[case, device], merged[case, "cpu"]
+        if got != want:
+            bad = next((i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b), min(len(got), len(want)))
+            raise SystemExit(f"two hosts {case}: {device} and CPU SAM "
+                             f"differ at line {bad}")
+        one = os.path.join(d, f"one_{case}.sam")
+        if main(["align", "--device", device, "-t", "1", *flags,
+                 os.path.join(d, "idx"),
+                 *(os.path.join(d, f) for f in files), "-o", one]) != 0:
+            raise SystemExit(f"one-host {case} failed")
+        a = [ln for ln in _records(one) if not ln.startswith("@")]
+        b = [ln for ln in got if not ln.startswith("@")]
+        diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+        print(f"two hosts {case}: {device} SAM == CPU SAM; {diff} of "
+              f"{len(a)} records differ from one host's (the read counter "
+              f"restarts on each host)", flush=True)
+    return {case: rates[case, device] for case in cases}
+
+
 def build_kernels():
     """Build K1, K2, K3 and K4 at once (one nvcc each) and print each
     build's register and spill report."""
@@ -1190,6 +1587,52 @@ def _widest(calls):
 def _largest(calls):
     """The captured call with the most jobs."""
     return max(calls, key=lambda c: c[0].shape[0])
+
+
+def new_path_phases(d: str, t12: float, device: str = "cuda",
+                    sizes=(16384, 4096), heads=(1024, 128),
+                    mesh_sizes=((4096, 2048), (256, 128), 1024),
+                    host_sizes=(1024, 512), n_chips: int = 0) -> dict:
+    """Phases 12-14 on the world of phases 3-6 (the phase 12 header is
+    printed by the caller at t12): the fused step on the first sizes[0]
+    reads of reads.fq (150 bp: K1) and sizes[1] of long.fq (1 kb: K3),
+    the mesh (of n_chips devices, 0: every visible card), and two hosts.
+    Prints each phase's seconds. Returns the
+    fused step's, the mesh's and the hosts' counts and reads/s."""
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+    from bwamem_tpu_torch.index.format import FMIndex
+
+    idx = FMIndex.load(os.path.join(d, "idx.bmt"))
+    fms = {device: DeviceFMIndex.from_host(idx, device)}
+    fms["cpu"] = (fms[device] if device == "cpu"
+                  else DeviceFMIndex.from_host(idx, "cpu"))
+    print(f"device indexes built in {time.perf_counter() - t12:.1f} s",
+          flush=True)
+    names, seqs = _batch(os.path.join(d, "reads.fq"), sizes[0])
+    truth = {n: (int(n.split("_")[1]), int(n.split("_")[2])) for n in names}
+    out = {"step_150": fused_step_phase(fms, "150 bp", names, seqs, truth,
+                                        "K1", "K3", heads, device)}
+    names, seqs = _batch(os.path.join(d, "long.fq"), sizes[1])
+    with open(os.path.join(d, "long.truth")) as f:
+        truth = {n: (int(p), int(s)) for n, p, s in
+                 (ln.split() for ln in f)}
+    out["step_1kb"] = fused_step_phase(fms, "1 kb", names, seqs, truth,
+                                       "K3", None, heads, device)
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+
+    phase("13 the mesh")
+    t0 = time.perf_counter()
+    out["mesh"] = mesh_phase(d, fms[device], device, n_chips,
+                             sizes=mesh_sizes[0],
+                             step_reads=sizes[0], no_native=mesh_sizes[1],
+                             n_wide=mesh_sizes[2])
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("14 two hosts")
+    t0 = time.perf_counter()
+    out["hosts"] = hosts_phase(d, device, host_sizes)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1269,8 +1712,11 @@ def main() -> int:
         phase("10 fastmap")
         fastmap_phase(d)
 
-    phase("11 the 16-bit probe")
-    probe_launches = probe_phase()
+        phase("11 the 16-bit probe")
+        probe_launches = probe_phase()
+
+        phase("12 the fused step")
+        new_path_phases(d, time.perf_counter())
 
     print(json.dumps({"kernels": [
         dict(name="extend_dense", route="cuda", library_ms=None,

@@ -92,16 +92,27 @@ def test_cli_matches_jax_aligner(fixture2, jax_sam, threads):
     assert flags == {0, 16}  # both strands aligned
 
 
-def test_unported_inputs_raise(fixture2):
-    """Multi-device runs are the one align input left unported."""
+def test_unported_inputs_raise(fixture2, jax_sam):
+    """The multi-device inputs, the last ones the port once refused, now
+    run: --n-chips 2 (a mesh of two CPU shards) gives the JAX aligner's
+    SAM, and --n-hosts refuses only what the JAX CLI refuses: no
+    --host-id, or no -o (the shards live next to the output)."""
     d, env = fixture2
-    for flags in (["--n-chips", "2"],
-                  ["--n-hosts", "2", "--host-id", "0"]):
+    out = d / "chips2.sam"
+    res = subprocess.run(
+        [sys.executable, "-m", "bwamem_tpu_torch", "align", "--device",
+         "cpu", "--n-chips", "2", str(d / "idx"), str(d / "r.fq"), "-o",
+         str(out)], env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "data-parallel over 2 devices" in res.stderr
+    assert _records(out.read_text().splitlines()) == jax_sam
+    for flags, msg in ((["--n-hosts", "2"], "--host-id"),
+                       (["--n-hosts", "2", "--host-id", "0"], "-o")):
         res = subprocess.run(
             [sys.executable, "-m", "bwamem_tpu_torch", "align", "--device",
-             "cpu", *flags, str(d / "idx"), str(d / "r.fq"), str(d / "r.fq")],
+             "cpu", *flags, str(d / "idx"), str(d / "r.fq")],
             env=env, capture_output=True, text=True, timeout=120)
-        assert res.returncode == 1 and "not ported yet" in res.stderr, flags
+        assert res.returncode == 1 and msg in res.stderr, flags
 
 
 def test_cuda_device_without_gpu_exits(fixture2):

@@ -22,8 +22,11 @@ call, the wrapper's input checks. K4
 (the 16-bit probe): every case exact against its plain version at the
 probe's (8, 128), at (3, 34) and at (16384, 1024) on full-range int16, one
 launch per call, and the wrapper refuses odd column counts, other dtypes
-and misaligned data. Every test needs an NVIDIA GPU (marker `cuda`) and
-skips without one.
+and misaligned data. The fused step (models/mem.py) equals itself on the
+CPU at 150 bp (one K1 launch) and 1 kb (one K3 launch); a mesh of one
+card equals one device, step and aligner SAM (SE and PE); `align
+--n-chips` past the visible cards exits with an error. Every test needs
+an NVIDIA GPU (marker `cuda`) and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without them:
@@ -474,3 +477,108 @@ def test_sw_kernel_rows_past_shared_memory():
     got = swalign_kernel.sw_align_batch(*(a.cuda() for a in args), *gaps)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.fixture(scope="module")
+def sim_world():
+    """A 200 kb repeat-rich genome (the port's index) with 150 bp and 1 kb
+    simulated reads as code arrays."""
+    from bwamem_tpu_torch.index.build import build_index_from_codes
+    from bwamem_tpu_torch.index.format import Annotation
+    from bwamem_tpu_torch.io.fastx import _CODE_LUT
+    from bwamem_tpu_torch.utils.simgenome import (make_repeat_genome,
+                                                  simulate_reads)
+
+    rng = np.random.default_rng(31)
+    contigs, _ = make_repeat_genome(rng, 200_000, n_contigs=1)
+    g = _CODE_LUT[np.frombuffer(contigs[0][1].encode(), np.uint8)].copy()
+    g[g > 3] = 0
+    idx = build_index_from_codes(g, Annotation(
+        names=["c"], lengths=[len(g)], offsets=[0]), sa_intv=4)
+
+    def codes(reads):
+        return [_CODE_LUT[np.frombuffer(r.seq.encode(), np.uint8)]
+                for r in reads]
+
+    short = codes(simulate_reads(rng, contigs, 600, read_len=150, sub=0.01))
+    long = codes(simulate_reads(rng, contigs, 64, read_len=1000, sub=0.01,
+                                ins=0.002, dele=0.002))
+    return idx, short, long
+
+
+@pytest.mark.parametrize("which,kernel,other", [
+    ("short", extend_kernel, extend_banded),
+    ("long", extend_banded, extend_kernel)])
+def test_fused_step_matches_cpu(sim_world, which, kernel, other):
+    """The fused step on the card equals it on the CPU, output for output:
+    150 bp reads launch K1 (and not K3), 1 kb reads, whose band window is
+    narrower than the row, launch K3 (and not K1)."""
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+    from bwamem_tpu_torch.models.mem import device_align_step
+    from chip_smoke import _reads_tensors
+
+    idx, short, long = sim_world
+    seqs = short if which == "short" else long
+    reads, lens = _reads_tensors(seqs, "cpu")
+    want = device_align_step(DeviceFMIndex.from_host(idx, "cpu"), reads,
+                             lens)
+    k0, o0 = kernel.LAUNCHES, other.LAUNCHES
+    got = device_align_step(DeviceFMIndex.from_host(idx, "cuda"),
+                            reads.cuda(), lens.cuda())
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == k0 + 1 and other.LAUNCHES == o0
+    assert got["has_seed"].float().mean() > 0.9
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_mesh_of_one_card_matches_one_device(sim_world):
+    """A mesh of the first card: sharded_align_step equals the step, and
+    MemAligner(mesh=...) gives the SAM of MemAligner() (SE and PE)."""
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+    from bwamem_tpu_torch.models.mem import device_align_step
+    from bwamem_tpu_torch.parallel import sharded
+    from bwamem_tpu_torch.pipeline.aligner import MemAligner
+    from bwamem_tpu_torch.pipeline.options import MemOptions
+    from chip_smoke import _reads_tensors
+
+    idx, short, _ = sim_world
+    fm = DeviceFMIndex.from_host(idx, "cuda")
+    mesh = sharded.make_mesh(1)
+    reads, lens = _reads_tensors(short, "cuda")
+    out, total = sharded.sharded_align_step(mesh)(
+        sharded.replicate_index(mesh, fm),
+        *sharded.shard_reads(mesh, reads, lens)[:2])
+    one = device_align_step(fm, reads, lens)
+    assert total == int(one["n_seeds"])
+    for k in out:
+        assert torch.equal(out[k], one[k]), k
+    names = [f"r{i}" for i in range(len(short))]
+    runs = [MemAligner(MemOptions(), idx, fm=fm, mesh=m)
+            for m in (None, mesh)]
+    sams = [(al.align_batch(names, short),
+             al.align_pairs_batch(names[:400], short[:400])) for al in runs]
+    assert sams[0] == sams[1]
+
+
+def test_cli_refuses_more_cards_than_visible(tmp_path):
+    """`align --n-chips N` past the visible cards exits with an error."""
+    import subprocess
+
+    from bwamem_tpu_torch.cli import main
+
+    g = "".join(np.random.default_rng(3).choice(list("ACGT"), 3000))
+    (tmp_path / "ref.fa").write_text(f">c\n{g}\n")
+    (tmp_path / "r.fq").write_text(f"@r\n{g[100:250]}\n+\n{'I' * 150}\n")
+    assert main(["index", str(tmp_path / "ref.fa"), "-p",
+                 str(tmp_path / "idx")]) == 0
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    n = torch.cuda.device_count() + 1
+    res = subprocess.run(
+        [sys.executable, "-m", "bwamem_tpu_torch", "align", "--n-chips",
+         str(n), str(tmp_path / "idx"), str(tmp_path / "r.fq"), "-o",
+         str(tmp_path / "out.sam")],
+        cwd=repo, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=repo))
+    assert res.returncode != 0
+    assert f"--n-chips {n}" in res.stderr and "visible" in res.stderr

@@ -67,6 +67,22 @@ def test_pairing_matches_original_but_the_rescue_launch():
             assert seg_got == seg_want, name
 
 
+def test_multihost_matches_original_but_the_join():
+    """parallel/multihost.py is a copy but for init_distributed, which
+    joins a Gloo process group in place of jax.distributed."""
+    want = _top_level(_read("bwamem_tpu", "parallel/multihost.py"))
+    got = _top_level(_read("bwamem_tpu_torch", "parallel/multihost.py"))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, seg_got), (_, seg_want) in zip(got, want):
+        if name == "init_distributed":
+            assert "jax" not in seg_got
+            assert 'backend="gloo"' in seg_got
+        else:
+            seg_want = re.sub(r"\bbwamem_tpu\b", "bwamem_tpu_torch",
+                              seg_want)
+            assert seg_got == seg_want, name
+
+
 def test_options_take_the_ports_score_matrix():
     """options.py's `from ..ops.extend import make_score_matrix` resolves to
     the port's ops/extend.py, with the same matrix."""

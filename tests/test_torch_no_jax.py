@@ -5,9 +5,11 @@ align single-end reads with --device cpu through the CLI, align pairs
 from two files whose victims (read 2 without a seed) only mate rescue can
 place, align with -F (the SHD filter), 1 kb reads with -x pacbio (the
 per-seed SW filter and the per-seed-object path), with -u 2 (fixed-length
-seeds through the k-mer table) and with -g (all MEMs), run fastmap and
-the 16-bit probe: those paths import inside functions, so only runs of
-them can show that none reaches jax."""
+seeds through the k-mer table), with -g (all MEMs), over a mesh of two
+CPU shards (--n-chips 2) and as two hosts (--n-hosts 2, host 1 and then
+host 0, which merges), run fastmap and the 16-bit probe: those paths
+import inside functions, so only runs of them can show that none reaches
+jax."""
 import subprocess
 import sys
 import textwrap
@@ -59,6 +61,12 @@ SCRIPT = textwrap.dedent(r"""
     for flag in ("-u 2", "-g"):
         assert main(["align", "--device", "cpu", *flag.split(), d + "/idx",
                      d + "/r.fq", "-o", d + f"/{flag[1]}.sam"]) == 0
+    assert main(["align", "--device", "cpu", "--n-chips", "2", d + "/idx",
+                 d + "/r.fq", "-o", d + "/chips.sam"]) == 0
+    for host in (1, 0):
+        assert main(["align", "--device", "cpu", "--n-hosts", "2",
+                     "--host-id", str(host), d + "/idx", d + "/r.fq",
+                     "-o", d + "/hosts.sam"]) == 0
     import contextlib
     with open(d + "/fastmap.txt", "w") as f, contextlib.redirect_stdout(f):
         assert main(["fastmap", "--device", "cpu", d + "/idx",
@@ -103,6 +111,17 @@ def test_port_runs_with_jax_refused(tmp_path):
                 (tmp_path / name).read_text().splitlines()
                 if not ln.startswith("@")]
         assert sum(f[2] != "*" for f in recs) >= n, name
+    def body(name):
+        return [ln.split("\t") for ln in
+                (tmp_path / name).read_text().splitlines()
+                if not ln.startswith("@")]
+
+    # the mesh's SAM is the one device's; the two hosts' holds the same
+    # records in the same order (each host restarts the read counter that
+    # breaks score ties, so a tie on this repeat-rich genome may differ)
+    assert body("chips.sam") == body("out.sam")
+    assert ([f[:2] for f in body("hosts.sam")]
+            == [f[:2] for f in body("out.sam")])
     fastmap = (tmp_path / "fastmap.txt").read_text().splitlines()
     assert sum(ln.startswith("SQ\t") for ln in fastmap) == 12
     assert sum(ln.startswith("EM\t") for ln in fastmap) >= 12

@@ -209,6 +209,90 @@ def test_mem_mode_pool_overflow_matches_jax(repeats, n_reads, tmp_path):
     assert tal.seed_cfg.cand_pool == grown
 
 
+def test_mem_mode_spill_split_matches_jax(repeats, tmp_path, monkeypatch):
+    """-g where the JAX aligner's pools reach their caps and still
+    overflow: with both sides' caps lowered to 64 candidate and 256 seed
+    slots a read, the round-1 candidates of 64 reads of 190 bp at 5%
+    substitutions (about 95 a read) overflow 64 x 64 slots, so the JAX
+    aligner halves the batch, and halves again, until each part fits its
+    own bucket_count(part) x 64 pool; each part then walks on a pool
+    narrower than 4096 lanes, without the staged compaction. The port
+    splits where the JAX aligner does and gives the same seeds. Under the
+    parent's rule (the whole batch seeded on one pool of 64 x 64 lanes,
+    which compacts) 18 of the 64 reads get other seeds. A fresh pool
+    store starts the JAX aligner at the default pools."""
+    import bwamem_tpu.pipeline.poolstore as jpools
+    from bwamem_tpu.pipeline.poolstore import PoolStore
+    from bwamem_tpu_torch.ops import seeding as tseeding
+    from bwamem_tpu_torch.pipeline import aligner as taligner
+
+    caps = {"cand_pool": 64, "seed_pool": 256}
+    for f, v in caps.items():
+        monkeypatch.setitem(jpools.POOL_CAPS, f, v)
+        monkeypatch.setitem(tseeding.POOL_CAPS, f, v)
+    g, jidx, tidx = repeats
+    seqs = _sample(g, 64, 190, 0.05, 11)
+    jal, tal = _aligners(jidx, tidx, re_seed=True)
+    jal.pool_store = PoolStore(str(tmp_path / "pools.json"))
+    want = jal.seed_batch(seqs)
+    assert jal.seed_cfg.cand_pool == 64
+    got = tal.seed_batch(seqs)
+    assert tal.seed_cfg.cand_pool == 64
+    assert got == want
+    # the parent's rule: no split
+    monkeypatch.setattr(taligner, "pool_spills", lambda *a: False)
+    _, parent = _aligners(jidx, tidx, re_seed=True)
+    old = parent.seed_batch(seqs)
+    n_diff = sum(a != b for a, b in zip(old, want))
+    assert n_diff == 18
+
+
+def test_cli_start_pools_match_jax_cli(repeats200, tmp_path, monkeypatch):
+    """-g through the CLI on 512 reads of 150 bp of a 200 kb repeat-rich
+    genome: the JAX CLI starts its aligner at --seed-cands 48 and
+    --seed-cap 8 slots a read, and the port's CLI passes both, so its SAM
+    equals the JAX CLI's. With the JAX SeedConfig's 32 candidate slots
+    (what the port's CLI used before it passed --seed-cands), 2 of the
+    512 reads get other seeds than the JAX CLI's pool of 48 gives."""
+    from bwamem_tpu.cli import main as jax_main
+    from bwamem_tpu.ops.seeding import SeedConfig as JSC
+    from bwamem_tpu.pipeline.aligner import MemAligner as JAl
+    from bwamem_tpu.pipeline.options import MemOptions as JOpt
+    from bwamem_tpu.pipeline.poolstore import PoolStore
+    from bwamem_tpu_torch.cli import main as port_main
+    from bwamem_tpu_torch.ops.seeding import SeedConfig as TSC
+    from bwamem_tpu_torch.pipeline.aligner import MemAligner as TAl
+    from bwamem_tpu_torch.pipeline.options import MemOptions as TOpt
+
+    g, jidx, tidx = repeats200
+    seqs = _sample(g, 512, 150, 0.01, 3)
+    jal = JAl(JOpt(re_seed=True), jidx,
+              seed_cfg=JSC(cand_pool=48, seed_pool=8, reseed=True))
+    jal.pool_store = PoolStore(str(tmp_path / "pools.json"))
+    want = jal.seed_batch(seqs)
+    old = TAl(TOpt(re_seed=True), tidx, device="cpu",
+              seed_cfg=TSC(cand_pool=32, reseed=True)).seed_batch(seqs)
+    assert sum(a != b for a, b in zip(old, want)) == 2
+
+    monkeypatch.chdir(tmp_path)  # both CLIs append to ./time.log
+    monkeypatch.setenv("BWAMEM_TPU_POOLS", str(tmp_path / "cli_pools.json"))
+    tidx.save(str(tmp_path / "idx.bmt"))
+    with open(tmp_path / "r.fq", "w") as f:
+        for i, r in enumerate(seqs):
+            seq = "".join("ACGTN"[c] for c in r)
+            f.write(f"@r{i}\n{seq}\n+\n{'I' * len(r)}\n")
+    outs = {}
+    for tool, main in (("jax", jax_main), ("port", port_main)):
+        out = tmp_path / f"{tool}.sam"
+        dev = ["--device", "cpu"] if tool == "port" else []
+        assert main(["align", *dev, "-t", "1", "-g", str(tmp_path / "idx"),
+                     str(tmp_path / "r.fq"), "-o", str(out)]) == 0
+        outs[tool] = [ln for ln in out.read_text().splitlines()
+                      if not ln.startswith("@PG")]
+    assert len(outs["port"]) > 512
+    assert outs["port"] == outs["jax"]
+
+
 @pytest.mark.parametrize("c_need,reads,pool,want", [
     (512, 16, 32, 32), (513, 16, 32, 64), (1024, 16, 32, 64),
     (1025, 16, 32, 128), (1514, 16, 32, 128), (2049, 16, 32, 256),

@@ -1,6 +1,7 @@
 """chip_smoke.py rehearsed on the CPU at a small size (its phases with the
 kernels' plain versions and --device cpu: SE, PE, long reads, --vanilla,
--F, -x pacbio, the seeding variants, fastmap and the 16-bit probe), plus
+-F, -x pacbio, the seeding variants, fastmap, the 16-bit probe, the fused
+step, the mesh and two hosts), plus
 its refusal to
 run — and to print a result — without a CUDA device or outside the
 repository."""
@@ -159,6 +160,29 @@ def test_probe_phase_on_cpu(capsys):
     assert chip_smoke.probe_phase("cpu") == 0  # the plain versions
     out = capsys.readouterr().out
     assert out.count("  PASS ") == 6 and "  VERDICT: " in out
+
+
+def test_new_path_phases_on_cpu(world, long_runs, monkeypatch, capsys):
+    """Phases 12-14 at a tiny size on the CPU: the fused step at 150 bp
+    and 1 kb (its head and batch checks against a second CPU run), a
+    mesh of two CPU shards against one device, the route without the
+    native core, the index forced wide, and two hosts as two processes
+    that join over Gloo; CPU tensors launch no kernel."""
+    monkeypatch.chdir(world)  # the CLI appends to ./time.log
+    # the hosts' processes inherit one intra-op thread (see native_lib)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = chip_smoke.new_path_phases(
+        world, 0.0, device="cpu", sizes=(48, 2), heads=(16, 1),
+        mesh_sizes=((32, 12), (12, 6), 12), host_sizes=(16, 8), n_chips=2)
+    assert set(out) == {"step_150", "step_1kb", "mesh", "hosts"}
+    for k in ("step_150", "step_1kb", "mesh"):
+        assert out[k]["K1"] == out[k]["K3"] == 0
+        assert out[k]["reads_per_s"] > 0
+    assert set(out["hosts"]) == {"se", "pe"}
+    text = capsys.readouterr().out
+    assert "mesh of 2 (cpu, cpu)" in text
+    assert text.count("two hosts se --device cpu") == 1
+    assert "phase 14 took" in text
 
 
 @pytest.mark.parametrize("alone", [False, True])
