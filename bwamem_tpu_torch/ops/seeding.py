@@ -24,6 +24,13 @@ Same stages, same output order:
   merge: the three rounds' survivors sorted stably by (read, qbeg, qend).
   occurrence expansion: per-seed subsampling (max_occ), then SA lookups.
 
+Mode "smem" runs its walks as hand-written CUDA kernels on a CUDA tensor
+(kernels/seed_kernels: S1 the round-1 forward walk with round 3 in the
+same trips, S2 the backward walks of rounds 1 and 2, S3 the round-2
+re-seed walks, S4 the SA lookup); the walk functions here are their
+plain versions, which a CPU tensor runs. Modes "mem" and "fwdmem" and
+bowtie_seed_batch run on torch ops on either device.
+
 Torch has dynamic shapes, so every compaction is exact (nonzero on the
 emission mask, which keeps order). The JAX package's fixed pools, their
 overflow retry and learned sizes exist only for XLA's static shapes and
@@ -45,6 +52,7 @@ import torch
 
 from ..index.device import DeviceFMIndex
 from . import fm as fmops
+from .kernels import seed_kernels
 
 BIG = 0x3FFFFFFF
 # the JAX aligner's largest pools of the two that mode "mem" fills
@@ -493,11 +501,14 @@ def _reseed_forward(fm, reads, lens, lrid, lx, lfloor, min_seed_len: int):
     return kb, sb, eb, fill
 
 
-def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
+def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ,
+                        lookup=fmops.sa_lookup_batch):
     """Per-SMEM occurrence list: subsample with step s // max_occ when
     s > max_occ (at most max_occ entries, the mem_chain rule,
     src/bwamem.c:426-431), then resolve each row's text position with an
-    SA walk. Seeds come out in (candidate, SA rank) order."""
+    SA walk (`lookup`: fm.sa_lookup_batch, or S4's wrapper
+    kernels/seed_kernels.sa_lookup). Seeds come out in (candidate, SA
+    rank) order."""
     s_v = torch.where(keep, s, 0).to(torch.int64)
     step = torch.where(s_v > max_occ, s_v // max_occ, 1)
     count = torch.where(s_v > 0, (s_v + step - 1) // step, 0)
@@ -507,7 +518,7 @@ def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
     first = count.cumsum(0) - count
     off = torch.arange(cand.shape[0], device=s.device) - first[cand]
     rows = k[cand].to(torch.int64) + off * step[cand]
-    rbeg = fmops.sa_lookup_batch(fm, rows)
+    rbeg = lookup(fm, rows)
     return dict(read_id=rid[cand].to(torch.int32),
                 qbeg=qbeg[cand].to(torch.int32),
                 qend=qend[cand].to(torch.int32), rbeg=rbeg, n_occ=s[cand])
@@ -536,19 +547,18 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     dev = reads.device
     dt = fmops.idx_dt(fm)
     reseed = cfg.reseed and cfg.mode == "smem"
-    fuse_r3 = reseed and cfg.max_mem_intv > 0 and fm.has_occ2
     r3_planes = None
     if cfg.mode == "fwdmem":
         start, k, s, emit = _forward_pass(fm, reads, lens, cfg.min_seed_len,
                                           emit_mode="segment")
-    elif fm.has_occ2:
-        out = _forward_pass2(
+    elif cfg.mode == "smem":
+        # S1: round 3 rides the round-1 walk
+        (start, k, s, emit), r3_planes = seed_kernels.seed_forward(
             fm, reads, lens, cfg.min_seed_len,
             strategy=((cfg.min_seed_len, cfg.max_mem_intv)
-                      if fuse_r3 else None))
-        start, k, s, emit = out[:4]
-        if fuse_r3:
-            r3_planes = out[4]
+                      if reseed and cfg.max_mem_intv > 0 else None))
+    elif fm.has_occ2:
+        start, k, s, emit = _forward_pass2(fm, reads, lens, cfg.min_seed_len)
     else:
         start, k, s, emit = _forward_pass(fm, reads, lens, cfg.min_seed_len)
     NP = emit.shape[1]
@@ -566,14 +576,15 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     else:
         # the text walk changes no SMEM (killed lanes are dropped either
         # way), so only mode "mem" needs it
-        mem = cfg.mode == "mem"
-        qbeg, k, s = _backward_pass(
-            fm, reads, rid, start, k, s, text_walk=mem and L >= 384,
-            schedule=cfg.r1_schedule if mem else (),
-            pool_width=(pool_reads or B) * cand_pool)
         if cfg.mode == "mem":
+            qbeg, k, s = _backward_pass(
+                fm, reads, rid, start, k, s, text_walk=L >= 384,
+                schedule=cfg.r1_schedule,
+                pool_width=(pool_reads or B) * cand_pool)
             keep = _dup_filter(qbeg, end, rid, s, cfg.min_seed_len)
         else:
+            qbeg, k, s = seed_kernels.seed_backward(fm, reads, rid, start,
+                                                    k, s)
             keep = _containment_filter(qbeg, end, rid, cfg.min_seed_len)
     if reseed:
         # ---- round 2: split re-seed of long low-occ SMEMs ----
@@ -581,7 +592,7 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         qualify = keep & (end - qbeg >= split_len) & (s <= cfg.split_width)
         _, (lrid, lx, lfloor) = _compact(
             qualify, rid, (qbeg + end) >> 1, (s + 1).to(dt))
-        kb, sb, eb, filled = _reseed_forward(
+        kb, sb, eb, filled = seed_kernels.seed_reseed_forward(
             fm, reads, lens, lrid, lx, lfloor, cfg.min_seed_len)
         E = kb.shape[1]
         lane = torch.arange(lrid.shape[0], dtype=torch.int32, device=dev)
@@ -592,15 +603,12 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         _, (rid2, lane2, x2, floor2, k2, s2, end2) = _compact(
             filled, flat(lrid), flat(lane), flat(lx), flat(lfloor), kb, sb,
             eb)
-        qb2, k2, s2 = _backward_pass(fm, reads, rid2, x2, k2, s2,
-                                     floor=floor2, group=lane2)
+        qb2, k2, s2 = seed_kernels.seed_backward(
+            fm, reads, rid2, x2, k2, s2, floor=floor2, group=lane2)
         keep2 = _containment_filter(qb2, end2, lane2, cfg.min_seed_len)
         parts = [(rid2, qb2, end2, k2, s2, keep2)]
-        # ---- round 3: LAST-like forward seeds ----
-        if cfg.max_mem_intv > 0:
-            if r3_planes is None:
-                r3_planes = _seed_strategy_pass(
-                    fm, reads, lens, cfg.min_seed_len, cfg.max_mem_intv)
+        # ---- round 3: LAST-like forward seeds (S1's round-3 planes) ----
+        if r3_planes is not None:
             x3p, k3p, s3p, emit3 = r3_planes
             L3 = emit3.shape[1]
             idx3, (qb3, k3, s3) = _compact(emit3, x3p, k3p, s3p)
@@ -623,7 +631,10 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         perm = torch.argsort(key, stable=True)
         rid, qbeg, end, k, s = (a[perm] for a in (rid, qbeg, end, k, s))
         keep = torch.ones_like(rid, dtype=torch.bool)
-    out = _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
+    out = _expand_occurrences(
+        fm, rid, qbeg, end, k, s, keep, cfg.max_occ,
+        lookup=(seed_kernels.sa_lookup if cfg.mode == "smem"
+                else fmops.sa_lookup_batch))
     out["cand_pool"] = cand_pool
     out["c_need"] = c_need
     return out

@@ -4,9 +4,11 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the four kernels from csrc/ with nvcc, in parallel: K1 (dense
-     extension), K2 (local SW), K3 (banded extension) and K4 (the 16-bit
-     probe);
+  1. build the kernels from csrc/ with nvcc, one nvcc a library, all in
+     parallel: K1 (dense extension), K2 (local SW), K3 (banded
+     extension), K4 (the 16-bit probe) and the seeding kernels' three
+     libraries (S1 seed_forward and S3 seed_reseed_forward, S2
+     seed_backward, S4 sa_lookup);
   2. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, exact equality, median of 5 timed runs, with the bound
      (the larger of bytes over HBM bandwidth and the DP's integer
@@ -94,8 +96,27 @@ Phases (each prints its own lines; any failure exits nonzero):
      (apart from @PG) the same on both, no shard file left; how many
      records differ from one host's is printed (each host restarts the
      read counter that breaks score ties), with each host's launches.
-Phases 12-14 print their seconds. Then one JSON line for the kernels,
-the card line, and the device JSON as the last line.
+     Every main path of phases 4-14 also counts the seeding kernels'
+     launches (reset just before its run, read just after): all four
+     must launch in phases 4 and 5, S1, S2 and S4 in phases 6-8, 10, 12
+     and 13 (mode "smem"; fastmap and the fused step run no re-seed
+     round, so no S3), none in phase 9 (-u 2/3/4 and -g seed on torch
+     ops);
+ 15. the seeding kernels against their plain versions (the port's torch
+     functions, on the card): on the captured calls of phase 4's warm
+     chunk, of phase 6's 1 kb chunk and of the fused step's 150 bp batch,
+     and of phase 4's warm chunk again on the index without occ2 and
+     forced wide: smem_seed_batch's final seeds equal the plain route's,
+     and each call's kernel equals its plain version (S1 and S3 on their
+     emit masks and emitted entries, S2 on the lanes the containment
+     filter keeps, S4 bit for bit), timed (median of 5; plain median of
+     3) with its bound (_seed_bound); then phase 4's warm chunk through
+     the aligner (collect) on the kernels and on the plain route under
+     torch.profiler: wall, seed_device, CUDA kernels, device busy share.
+Phases 12-15 print their seconds. Then one JSON line for the kernels
+(the seeding kernels with phase 4's launches, launches by phase, and
+phase 4's warm-chunk records), the card line, and the device JSON as
+the last line.
 Needs one CUDA device; exits nonzero without one.
 """
 from __future__ import annotations
@@ -107,6 +128,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import ExitStack, contextmanager
 
@@ -543,6 +565,413 @@ def captured_k2(label: str, call, timed: bool = True) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
+# the seeding kernels: name -> (the JAX function it replaces, its source)
+SEED_KERNELS = {
+    "seed_forward": ("bwamem_tpu/ops/seeding.py:176 _forward_pass2 (:111 "
+                     "_forward_pass, :796 _seed_strategy_pass)",
+                     "bwamem_tpu_torch/csrc/seed_forward.cu"),
+    "seed_backward": ("bwamem_tpu/ops/seeding.py:366 _backward_pass",
+                      "bwamem_tpu_torch/csrc/seed_backward.cu"),
+    "seed_reseed_forward": ("bwamem_tpu/ops/seeding.py:842 _reseed_forward",
+                            "bwamem_tpu_torch/csrc/seed_forward.cu"),
+    "sa_lookup": ("bwamem_tpu/ops/fm.py:666 sa_lookup_batch",
+                  "bwamem_tpu_torch/csrc/sa_lookup.cu")}
+# the seeding kernels' bound: the integer instructions a table word costs
+# a query (xor, not, shift, and, popcount, add: one code's match count)
+OPS_PER_WORD = 6
+
+
+def make_seed_reads(g, rng, B: int, L: int):
+    """B reads (int8 codes, (B, L), 4 = N or pad, and (B,) int32 lengths)
+    of up to L bases from genome codes g: 1.5% substitutions, a 2-base
+    deletion in every fifth, every other one reverse-complemented, an N
+    base in every fourth, and every seventh of length 0, 1, 2, 19 or L in
+    turn (the seeding kernels' edge cases)."""
+    import numpy as np
+
+    reads = np.full((B, L), 4, np.int8)
+    lens = np.zeros(B, np.int32)
+    for b in range(B):
+        n = (int(rng.integers(min(90, L // 2), L - 1)) if b % 7
+             else [0, 1, 2, 19, L][b // 7 % 5])
+        p = int(rng.integers(0, len(g) - n - 4))
+        r = g[p:p + n + 4].copy()
+        if b % 5 == 2 and n > 45:
+            c = int(rng.integers(20, n - 20))
+            r = np.delete(r, [c, c + 1])
+        r = r[:n]
+        e = rng.random(n) < 0.015
+        r[e] = (r[e] + 1) % 4
+        if b % 2:
+            r = (3 - r)[::-1].copy()
+        if b % 4 == 1 and n:
+            r[int(rng.integers(0, n))] = 4
+        reads[b, :n] = r
+        lens[b] = n
+    return reads, lens
+
+
+def _seed_counts() -> dict:
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    return dict(seed_kernels.LAUNCHES)
+
+
+def _reset_seed_counts() -> None:
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    for k in seed_kernels.LAUNCHES:
+        seed_kernels.LAUNCHES[k] = 0
+
+
+SEED_ALL = tuple(SEED_KERNELS)
+SEED_R1 = ("seed_forward", "seed_backward", "sa_lookup")
+# phase -> the seeding kernels' launches in its main-path run
+SEED_LAUNCHES: dict = {}
+
+
+def _seed_phase(tag: str, device: str, need=(), absent=()) -> dict:
+    """After a phase's main-path run: its seeding kernel launches, printed
+    and kept in SEED_LAUNCHES[tag]; on the card, every kernel in `need`
+    must have launched and none in `absent`. Returns the counts."""
+    counts = _seed_counts()
+    SEED_LAUNCHES[tag] = counts
+    print(f"{tag}: seeding kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    bad = [k for k in need if counts[k] < 1] + [k for k in absent
+                                                 if counts[k] > 0]
+    if device == "cuda" and bad:
+        raise SystemExit(f"{tag}: seeding kernel launches {counts}; "
+                         f"wrong for {bad}")
+    return counts
+
+
+def _clone(x):
+    import torch
+
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+@contextmanager
+def _seed_wrappers(fns: dict):
+    """Inside the block, seed_kernels' wrapper functions named in `fns`
+    are the given functions (ops/seeding.py calls them through the
+    module)."""
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    orig = {name: getattr(seed_kernels, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(seed_kernels, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(seed_kernels, name, fn)
+
+
+@contextmanager
+def capture_seed_calls():
+    """Record every call of the four seeding wrappers made inside the
+    block, each as (name, args, kwargs, thread) with its tensors cloned;
+    the index (the first argument) is kept as it is, and `thread` is the
+    calling thread's ident (the pipeline's collector threads seed chunks
+    side by side). Yields the list."""
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    calls = []
+
+    def wrap(name):
+        orig = getattr(seed_kernels, name)
+
+        def wrapped(fm, *args, **kw):
+            calls.append((name, (fm,) + tuple(map(_clone, args)),
+                          {k: _clone(v) for k, v in kw.items()},
+                          threading.get_ident()))
+            return orig(fm, *args, **kw)
+        return wrapped
+
+    with _seed_wrappers({name: wrap(name) for name in SEED_KERNELS}):
+        yield calls
+
+
+@contextmanager
+def plain_seeding():
+    """Inside the block, the four seeding wrappers run their plain
+    versions on whatever device the tensors are on (the route before the
+    kernels)."""
+    with _seed_wrappers(_seed_plain()):
+        yield
+
+
+def _seed_plain() -> dict:
+    from bwamem_tpu_torch.ops import fm as fmops
+    from bwamem_tpu_torch.ops import seeding
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    return {"seed_forward": seed_kernels.seed_forward_plain,
+            "seed_backward": seeding._backward_pass,
+            "seed_reseed_forward": seeding._reseed_forward,
+            "sa_lookup": fmops.sa_lookup_batch}
+
+
+def _emitted_err(got, want, mask_at: int) -> int:
+    """Max abs difference of planes `got` and `want` (tuples) on the
+    entries their mask plane (index mask_at) sets; -1 when the masks
+    differ."""
+    import torch
+
+    mg, mw = got[mask_at], want[mask_at]
+    if not torch.equal(mg, mw):
+        return -1
+    err = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i != mask_at and mw.any():
+            err = max(err, int((a[mw].long() - b[mw].long()).abs().max()))
+    return err
+
+
+def _kept_err(got, want, group) -> int:
+    """seed_backward's rule: the lanes the containment filter keeps (its
+    containment clause, qb below every later qb of the lane's group; its
+    length clause reads the same qb) must agree, and their (qb, k, s);
+    -1 when the kept masks differ."""
+    import torch
+
+    from bwamem_tpu_torch.ops.seeding import _segmented_suffix_min
+
+    def kept(qb):
+        return qb.long() < _segmented_suffix_min(qb, group)
+
+    kg, kw = kept(got[0]), kept(want[0])
+    if not torch.equal(kg, kw):
+        return -1
+    err = 0
+    for a, b in zip(got, want):
+        if kw.any():
+            err = max(err, int((a[kw].long() - b[kw].long()).abs().max()))
+    return err
+
+
+def _seed_compare(name, got, want, args, kw) -> int:
+    """A seeding kernel's output against its plain version's, by the
+    kernel's rule (seed_kernels' docstring). Returns the max abs err on
+    the entries compared, -1 for a mask that differs."""
+    import torch
+
+    if name == "seed_forward":
+        errs = [_emitted_err(got[0], want[0], 3)]
+        if want[1] is not None:
+            errs.append(_emitted_err(got[1], want[1], 3))
+        return -1 if min(errs) < 0 else max(errs)
+    if name == "seed_reseed_forward":
+        return _emitted_err(got, want, 3)
+    if name == "seed_backward":
+        group = kw.get("group")
+        return _kept_err(got, want, args[2] if group is None else group)
+    if got.shape != want.shape:
+        return -1
+    return int((got.long() - want.long()).abs().max()) if len(got) else 0
+
+
+def _table_bytes(touched: int, *tables) -> int:
+    """The bytes of the index's `tables` one seeding call must read from
+    HBM: the table rows its walks touch (`touched` bytes, repeats
+    counted), but no byte twice, so at most the tables' size (a repeated
+    row comes from L2)."""
+    return min(touched, sum(t.numel() * t.element_size() for t in tables))
+
+
+def _seed_bound(name, args, kw, want) -> dict:
+    """The least time of one seeding kernel call on these inputs (_bound).
+    Bytes: its inputs once, the emit planes and the emitted entries once,
+    and each byte of the index tables its walks read once (_table_bytes).
+    Operations: OPS_PER_WORD instructions for each table word a walk
+    queries, every query counted (a row at each end of the interval a
+    step). The steps are this run's: a forward walk's trips to its read's
+    end, a backward lane's bases prepended (plus the failed one), a
+    re-seed lane's trips to its last emission, a row's LF steps (its
+    position mod sa_intv, the index sampling by text position)."""
+    import torch
+
+    fm = args[0]
+    dsz = 8 if fm.wide else 4
+    occ = fm.occ_blocks[:int(fm.n_occ_blocks)]
+    row_bytes = 128 if fm.has_occ2 else 32
+    walk_table = fm.occ2_blocks if fm.has_occ2 else occ
+    if name == "seed_forward":
+        reads, lens = args[1], args[2]
+        B, L = reads.shape
+        ln = lens.long()
+        trips = int(((ln + 2) // 2).sum() if fm.has_occ2 else (ln + 1).sum())
+        walks = 1 + (want[1] is not None)
+        rows = 2 * trips * walks
+        outs = [p for p in (want[0], want[1]) if p is not None]
+        nbytes = (reads.numel() * 4 + B * 4
+                  + sum(p[3].numel() + int(p[3].sum()) * (4 + 2 * dsz)
+                        for p in outs)
+                  + _table_bytes(rows * row_bytes, walk_table))
+    elif name == "seed_backward":
+        qbeg = args[3]
+        P = qbeg.shape[0]
+        steps = int((qbeg.long() - want[0].long() + 1).sum())
+        rows, row_bytes = 2 * steps, 32
+        nbytes = (P * (4 + 4 + 2 * dsz + 4 + 2 * dsz) + steps * 4
+                  + _table_bytes(rows * row_bytes, occ))
+        if kw.get("floor") is not None:
+            nbytes += P * dsz
+    elif name == "seed_reseed_forward":
+        fill = want[3]
+        R, W = fill.shape
+        col = torch.arange(W, device=fill.device)
+        last = torch.where(fill, col, 0).max(dim=1).values if R else col[:0]
+        trips = int(((last + 1) // 2).sum() if fm.has_occ2 else last.sum())
+        rows = 2 * trips
+        nbytes = (R * (4 + 4 + dsz) + fill.numel()
+                  + int(fill.sum()) * (2 * dsz + 4)
+                  + _table_bytes(rows * row_bytes, *(
+                      (walk_table, occ) if fm.has_occ2 else (occ,))))
+    else:
+        n = want.shape[0]
+        steps = int((want.long() % fm.sa_intv).sum())
+        rows, row_bytes = n + 2 * steps, 32
+        # the rows in and the positions out; the sampled value each row
+        # ends on, and the occ and SSA-bitmap rows of its steps
+        vals = (fm.ssa_vals, fm.ssa_vals_hi) if fm.wide else (fm.ssa_vals,)
+        nbytes = (n * 2 * dsz + _table_bytes(n * (4 + fm.wide), *vals)
+                  + _table_bytes(rows * row_bytes, fm.occ_blocks))
+    return _bound(nbytes, rows * (row_bytes // 4) * OPS_PER_WORD)
+
+
+def check_seed_call(label: str, call, timed: bool = True) -> dict:
+    """One captured seeding kernel call (capture_seed_calls) replayed:
+    the kernel against its plain version on the same inputs, by the
+    kernel's rule (_seed_compare), both timed (median of 5 for the kernel,
+    of 3 for the plain version; `timed` False skips it), with the bound
+    (_seed_bound). Prints one line; exits on a mismatch. Returns the
+    record."""
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    name, args, kw = call[:3]
+    kern = getattr(seed_kernels, name)
+    plain = _seed_plain()[name]
+    want = plain(*args, **kw)
+    got = kern(*args, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    err = _seed_compare(name, got, want, args, kw)
+    if err != 0:
+        raise SystemExit(f"{name} != plain on {label}: "
+                         + ("a mask differs" if err < 0
+                            else f"max abs err {err}"))
+    ms = plain_ms = None
+    if timed:
+        ms = _median_ms(lambda: kern(*args, **kw))
+        plain_ms = _median_ms(lambda: plain(*args, **kw), reps=3)
+    bound = _seed_bound(name, args, kw, want)
+    shape = "x".join(str(d) for d in args[1].shape)
+    print(f"{name} on {label} ({shape}): equal; kernel {ms} ms, plain "
+          f"{plain_ms} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+
+
+SEED_KEYS = ("read_id", "qbeg", "qend", "rbeg", "n_occ")
+
+
+def seed_route_check(label: str, fm, reads, lens, cfg) -> list:
+    """smem_seed_batch on (reads, lens) through the kernels, with its calls
+    captured, against the plain route (plain_seeding) on the same device:
+    the final seed arrays must be equal. Returns the captured calls."""
+    import torch
+
+    from bwamem_tpu_torch.ops.seeding import smem_seed_batch
+
+    with plain_seeding():
+        want = smem_seed_batch(fm, reads, lens, cfg)
+    with capture_seed_calls() as calls:
+        got = smem_seed_batch(fm, reads, lens, cfg)
+    bad = [k for k in SEED_KEYS
+           if not torch.equal(got[k].long(), want[k].long())]
+    if bad:
+        raise SystemExit(f"{label}: smem_seed_batch's seeds differ from "
+                         f"the plain route's in {bad}")
+    print(f"{label}: smem_seed_batch on the kernels == the plain route "
+          f"({len(want['rbeg'])} seeds of {reads.shape[0]} reads)",
+          flush=True)
+    return calls
+
+
+def seed_kernel_phase(contexts, timed: bool = True) -> dict:
+    """Each seeding kernel against its plain version on main-path inputs.
+    contexts: (label, fm, cfg, reads, lens, calls): smem_seed_batch of
+    (reads, lens) with cfg on fm is held to the plain route
+    (seed_route_check), then every call of `calls` (the main path's
+    captured calls of that batch; None: those seed_route_check captured)
+    is replayed (check_seed_call). Returns {(label, name, i): record}, i
+    counting that kernel's calls in the batch."""
+    out = {}
+    for label, fm, cfg, reads, lens, calls in contexts:
+        fresh = seed_route_check(label, fm, reads, lens, cfg)
+        seen: dict = {}
+        for call in calls if calls is not None else fresh:
+            i = seen[call[0]] = seen.get(call[0], -1) + 1
+            out[label, call[0], i] = check_seed_call(
+                label + (f" (call {i + 1})" if i else ""), call, timed)
+    return out
+
+
+def warm_chunk(calls) -> list:
+    """The calls of the last smem_seed_batch among captured calls: its
+    seed_forward call and the later calls of the same thread."""
+    last = max(i for i, c in enumerate(calls) if c[0] == "seed_forward")
+    return [c for c in calls[last:] if c[3] == calls[last][3]]
+
+
+def seed_profile(fm, idx, seqs, device: str = "cuda") -> dict:
+    """One warm chunk of the SE aligner (MemAligner.collect_regs_batch on
+    `seqs`, after one warm-up) on the seeding kernels and on the plain
+    route, each under torch.profiler: wall, the seed_device span, CUDA
+    kernels launched and the device's busy share (the summed kernel time
+    over the wall). Returns {route: record}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwamem_tpu_torch.pipeline.aligner import MemAligner
+    from bwamem_tpu_torch.pipeline.options import MemOptions
+    from bwamem_tpu_torch.utils.timing import Timings
+
+    al = MemAligner(MemOptions(), idx, fm=fm, device=device)
+    out = {}
+    for route in ("kernels", "plain"):
+        ctx = plain_seeding() if route == "plain" else ExitStack()
+        with ctx:
+            al.collect_regs_batch(seqs)  # warm-up
+            al.timings = Timings()
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device == "cuda" else [])
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                al.collect_regs_batch(seqs)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            al.timings, seed_s = None, al.timings.totals["seed_device"]
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in ops if not e.name.startswith(("Memcpy", "Memset"))]
+        busy = sum(e.device_time_total for e in ops) / 1e6
+        out[route] = dict(wall=wall, seed_device=seed_s, kernels=len(kern),
+                          device_ops=len(ops), busy=busy / wall)
+        print(f"warm chunk ({len(seqs)} reads), seeding on the {route}: "
+              f"collect {wall:.4f} s, seed_device {seed_s:.4f} s, "
+              f"{len(kern)} CUDA kernels ({len(ops)} device ops with the "
+              f"copies and sets), device busy {out[route]['busy']:.4f}",
+              flush=True)
+    return out
+
+
 def make_sw_jobs(rng, N, QMAX, TMAX):
     """Rescue-shaped local-SW jobs: a mate of 150 bases (or fewer) against
     a window of about 626 bases; half the mates are a mutated slice of
@@ -817,11 +1246,14 @@ def _records(path):
 
 
 def align_phase(d: str, device: str = "cuda",
-                chunk_reads: int = CHUNK_READS):
+                chunk_reads: int = CHUNK_READS, seed_calls=None):
     """The main path: `align` through the CLI entry point on `device`,
-    with the kernel's launch count reset just before and read just after
-    and its calls captured (capture_calls). Then the first N_COMPARE reads on
-    the CPU. Returns the launch count, reads/s and the captured calls."""
+    with the kernels' launch counts reset just before and read just after
+    (K1, and the seeding kernels: all four must launch on the card) and
+    K1's calls captured (capture_calls; the seeding kernels' calls too,
+    capture_seed_calls, into the list `seed_calls` when one is given).
+    Then the first N_COMPARE reads on the CPU. Returns K1's launch count,
+    reads/s and its captured calls."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import extend_kernel
 
@@ -832,12 +1264,16 @@ def align_phase(d: str, device: str = "cuda",
             str(chunk_reads * READ_LEN), "-f", tsv, idx,
             os.path.join(d, "reads.fq"), "-o", out]
     extend_kernel.LAUNCHES = 0
+    _reset_seed_counts()
     t0 = time.perf_counter()
-    with capture_calls("K1") as calls:
+    with capture_calls("K1") as calls, capture_seed_calls() as scalls:
         if main(argv) != 0:
             raise SystemExit("align failed")
     wall = time.perf_counter() - t0
     launches = extend_kernel.LAUNCHES
+    _seed_phase("4", device, SEED_ALL)
+    if seed_calls is not None:
+        seed_calls.extend(scalls)
     recs = _records(out)
     body = [ln.split("\t") for ln in recs if not ln.startswith("@")]
     prim = [f for f in body if not int(f[1]) & 0x900]
@@ -896,8 +1332,10 @@ def _timing_row(path):
 def pe_align_phase(d: str, device: str = "cuda",
                    chunk_pairs: int = CHUNK_PAIRS):
     """The PE main path: `align` of r1.fq + r2.fq through the CLI entry
-    point on `device`, with K1's and K2's launch counts reset just before
-    and read just after and K2's calls captured (capture_calls). Then the
+    point on `device`, with K1's, K2's and the seeding kernels' launch
+    counts reset just before and read just after (all four seeding
+    kernels must launch on the card) and K2's calls captured
+    (capture_calls). Then the
     head pairs on `device` and on the CPU, with the same flags and -K,
     must give the same SAM. Returns (K1 launches, K2 launches, pairs/s, the
     captured K2 calls)."""
@@ -920,11 +1358,13 @@ def pe_align_phase(d: str, device: str = "cuda",
 
     extend_kernel.LAUNCHES = 0
     swalign_kernel.LAUNCHES = 0
+    _reset_seed_counts()
     t0 = time.perf_counter()
     with capture_calls("K2") as sw_calls:
         out, tsv = align(device, "r1.fq", "r2.fq", "main")
     wall = time.perf_counter() - t0
     k1, k2 = extend_kernel.LAUNCHES, swalign_kernel.LAUNCHES
+    _seed_phase("5", device, SEED_ALL)
     body = [ln.split("\t") for ln in _records(out) if not ln.startswith("@")]
     prim = [f for f in body if not int(f[1]) & 0x900]
     n = len(prim)
@@ -982,15 +1422,19 @@ def _head(src: str, dst: str, n: int) -> None:
 
 def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
                need: tuple, device: str = "cuda",
-               capture: bool = False) -> dict:
+               capture: bool = False, seed_need=SEED_R1,
+               seed_absent=()) -> dict:
     """A further main path: SE `align` of `reads` with `flags` through the
     CLI entry point on `device`, every kernel's launch count reset just
     before and read just after; kernels in `need` must have launched. Then
     the first n_head reads with --device cpu, whose SAM must be
-    byte-identical to the device run's records of those reads. Returns
-    the launch counts (K1, K1's wide route, K2, K3), reads/s
-    and, with `capture`, the device run's K1, K2 and K3 calls
-    (capture_calls) as k1_calls, k2_calls and k3_calls."""
+    byte-identical to the device run's records of those reads. The
+    seeding kernels in `seed_need` must launch on the card and those in
+    `seed_absent` must not. Returns the launch counts (K1, K1's wide
+    route, K2, K3, the seeding kernels), reads/s and, with `capture`, the
+    device run's K1, K2 and K3 calls (capture_calls) as k1_calls, k2_calls
+    and k3_calls and its seeding calls (capture_seed_calls) as
+    seed_calls."""
     from bwamem_tpu_torch.cli import main
     from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
                                               swalign_kernel)
@@ -1011,14 +1455,18 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     for m in mods.values():
         m.LAUNCHES = 0
     extend_kernel.WIDE_LAUNCHES = 0
+    _reset_seed_counts()
     t0 = time.perf_counter()
     with ExitStack() as stack:
         calls = {f"{k.lower()}_calls": stack.enter_context(
             capture_calls(k)) for k in CAPTURED} if capture else {}
+        if capture:
+            calls["seed_calls"] = stack.enter_context(capture_seed_calls())
         recs, row = align(device, os.path.join(d, reads), "main")
     wall = time.perf_counter() - t0
     counts = {k: m.LAUNCHES for k, m in mods.items()}
     counts["K1_wide"] = extend_kernel.WIDE_LAUNCHES
+    counts.update(_seed_phase(tag, device, seed_need, seed_absent))
     body = [ln.split("\t") for ln in recs if not ln.startswith("@")]
     prim = [f for f in body if not int(f[1]) & 0x900]
     n = len(prim)
@@ -1100,12 +1548,14 @@ def variant_phases(d: str, device: str = "cuda", sizes=VARIANT_READS,
                    heads=VARIANT_HEADS) -> dict:
     """Phase 9 on the world of phase 3: -u 2, -u 3 and -g on the first
     sizes[0] reads of reads.fq, -u 4 on the first sizes[1], each through
-    flag_phase (K1 must launch; device SAM == CPU SAM on the head).
+    flag_phase (K1 must launch, no seeding kernel may: these modes seed on
+    torch ops; device SAM == CPU SAM on the head).
     Returns each variant's launch counts and reads/s."""
     n, n4 = sizes
     _head(os.path.join(d, "reads.fq"), os.path.join(d, "var.fq"), n)
     _head(os.path.join(d, "reads.fq"), os.path.join(d, "var4.fq"), n4)
-    return {tag: flag_phase(d, tag, reads, head, flags, ("K1",), device)
+    return {tag: flag_phase(d, tag, reads, head, flags, ("K1",), device,
+                            seed_need=(), seed_absent=SEED_ALL)
             for tag, reads, head, flags in (
                 ("u2", "var.fq", heads[0], ["-u", "2"]),
                 ("u3", "var.fq", heads[0], ["-u", "3"]),
@@ -1116,7 +1566,8 @@ def variant_phases(d: str, device: str = "cuda", sizes=VARIANT_READS,
 def fastmap_phase(d: str, device: str = "cuda",
                   n_head: int = FASTMAP_HEAD) -> float:
     """Phase 10: `fastmap` of var.fq (phase 9's reads) through the CLI
-    entry point on `device`, then of its first n_head reads with
+    entry point on `device` (the round-1 seeding kernels must launch on
+    the card), then of its first n_head reads with
     --device cpu, whose text must equal the device run's for those reads.
     Returns reads/s."""
     from contextlib import redirect_stdout
@@ -1133,9 +1584,11 @@ def fastmap_phase(d: str, device: str = "cuda",
         with open(out) as f:
             return f.read().split("//\n")[:-1]  # one block per read
 
+    _reset_seed_counts()
     t0 = time.perf_counter()
     got = fastmap(device, os.path.join(d, "var.fq"), "main")
     wall = time.perf_counter() - t0
+    _seed_phase("10", device, SEED_R1)
     n_em = sum(b.count("\nEM\t") for b in got)
     print(f"fastmap --device {device}: {len(got)} reads in {wall:.2f} s "
           f"wall (index load + setup included) = {len(got) / wall:.1f} "
@@ -1235,7 +1688,7 @@ def _counts():
                                               swalign_kernel)
 
     return dict(K1=extend_kernel.LAUNCHES, K2=swalign_kernel.LAUNCHES,
-                K3=extend_banded.LAUNCHES)
+                K3=extend_banded.LAUNCHES, **_seed_counts())
 
 
 def _reset_counts() -> None:
@@ -1244,6 +1697,7 @@ def _reset_counts() -> None:
 
     extend_kernel.LAUNCHES = swalign_kernel.LAUNCHES = 0
     extend_banded.LAUNCHES = 0
+    _reset_seed_counts()
 
 
 def fused_step_phase(fms: dict, tag: str, names, seqs, truth: dict,
@@ -1251,15 +1705,17 @@ def fused_step_phase(fms: dict, tag: str, names, seqs, truth: dict,
                      device: str = "cuda") -> dict:
     """The fused step (models/mem.device_align_step) on one batch on
     `device`: the kernels' counts set to 0 just before its first run and
-    read just after (`need` must have launched, `absent` not); then the
+    read just after (`need` must have launched, `absent` not, and the
+    round-1 seeding kernels; its seeding calls are captured,
+    capture_seed_calls); then the
     median of 3 warm runs, the `need` launch of the first run replayed
     alone (capture_calls; median of 5), the has_seed share and the share
     within 5 bp of the simulated origin (truth: name -> (pos, strand); no
     gate); then
     the first heads[0] reads' outputs against the CPU's on those reads,
     and a batch of the first heads[1] reads on `device` against the CPU's
-    on it (n_seeds too). fms: device -> DeviceFMIndex. Returns the counts
-    and reads/s."""
+    on it (n_seeds too). fms: device -> DeviceFMIndex. Returns the counts,
+    reads/s and the seeding calls (seed_calls)."""
     import torch
 
     from bwamem_tpu_torch.models.mem import device_align_step
@@ -1274,10 +1730,11 @@ def fused_step_phase(fms: dict, tag: str, names, seqs, truth: dict,
 
     _reset_counts()
     t0 = time.perf_counter()
-    with capture_calls(need) as calls:
+    with capture_calls(need) as calls, capture_seed_calls() as seed_calls:
         out = run(reads, lens, device)
     cold = time.perf_counter() - t0
     counts = _counts()
+    _seed_phase(f"12 {tag}", device, SEED_R1)
     if device == "cuda" and (counts[need] < 1
                              or (absent and counts[absent] > 0)):
         raise SystemExit(f"{tag}: the fused step launched {counts}; {need} "
@@ -1329,7 +1786,7 @@ def fused_step_phase(fms: dict, tag: str, names, seqs, truth: dict,
                f"{tag}: a batch of {m} reads, {device} vs cpu", True)
     print(f"{tag}: first {n} reads and a batch of {m}: {device} == cpu "
           f"(CPU runs {time.perf_counter() - t0:.1f} s)", flush=True)
-    return dict(counts, reads_per_s=B / warm)
+    return dict(counts, reads_per_s=B / warm, seed_calls=seed_calls)
 
 
 def mesh_phase(d: str, fm, device: str = "cuda", n_chips: int = 0,
@@ -1386,6 +1843,7 @@ def mesh_phase(d: str, fm, device: str = "cuda", n_chips: int = 0,
     got = sam(MemAligner(opt, idx, fm=fm, device=device, mesh=mesh), *sizes)
     wall = time.perf_counter() - t0
     counts = _counts()
+    _seed_phase("13", device, SEED_R1)
     if got != want:
         raise SystemExit("MemAligner(mesh=...) SAM differs from one device's")
     if device == "cuda" and (counts["K1"] < 1 or counts["K2"] < 1):
@@ -1559,22 +2017,70 @@ def hosts_phase(d: str, device: str = "cuda", sizes=(1024, 512),
     return {case: rates[case, device] for case in cases}
 
 
+def seeding_phase(d: str, seed4, long_calls, step_calls,
+                  device: str = "cuda", timed: bool = True,
+                  chunk_reads: int = CHUNK_READS) -> dict:
+    """Phase 15, the seeding kernels against their plain versions: on the
+    captured calls of phase 4's warm chunk (seed4: all its seeding calls),
+    of phase 6's 1 kb chunk and of the fused step's 150 bp batch, then on
+    phase 4's warm chunk again with the index without occ2 and with it
+    forced wide (seed_kernel_phase: the final seeds against the plain
+    route, each call against its plain version); then phase 4's warm chunk
+    of the aligner (reads chunk_reads .. 2 chunk_reads - 1 of reads.fq) on
+    the kernels and on the plain route under torch.profiler
+    (seed_profile). Returns the records of
+    seed_kernel_phase and the profile (key "profile")."""
+    import dataclasses
+
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+    from bwamem_tpu_torch.index.format import FMIndex
+    from bwamem_tpu_torch.ops.seeding import SeedConfig
+
+    def ctx(label, calls, cfg, fm=None, replay=True):
+        fwd = calls[0][1]
+        return (label, fm or fwd[0], cfg, fwd[1], fwd[2],
+                calls if replay else None)
+
+    warm = warm_chunk(seed4)
+    fm4 = warm[0][1][0]
+    idx = FMIndex.load(os.path.join(d, "idx.bmt"))
+    full = SeedConfig(reseed=True)
+    contexts = [
+        ctx("phase 4 warm chunk", warm, full),
+        ctx("phase 6 1 kb chunk", warm_chunk(long_calls), full),
+        ctx("fused step 150 bp", warm_chunk(step_calls), SeedConfig()),
+        ctx("phase 4 warm chunk, index without occ2", warm, full,
+            DeviceFMIndex.from_host(idx, device, occ2=False), False),
+        ctx("phase 4 warm chunk, index forced wide", warm, full,
+            dataclasses.replace(fm4, wide=True), False)]
+    out = seed_kernel_phase(contexts, timed)
+    _, seqs = _batch(os.path.join(d, "reads.fq"), 2 * chunk_reads)
+    out["profile"] = seed_profile(fm4, idx, seqs[chunk_reads:], device)
+    return out
+
+
 def build_kernels():
-    """Build K1, K2, K3 and K4 at once (one nvcc each) and print each
-    build's register and spill report."""
+    """Build K1, K2, K3, K4 and the seeding kernels' three libraries at
+    once (one nvcc each) and print each build's register and spill
+    report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
-                                              int16_probe, swalign_kernel)
+                                              int16_probe, seed_kernels,
+                                              swalign_kernel)
 
     mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded,
             "K4": int16_probe}
-    with ThreadPoolExecutor(len(mods)) as ex:
+    with ThreadPoolExecutor(len(mods) + len(seed_kernels.SOURCES)) as ex:
         futs = {k: ex.submit(m.build) for k, m in mods.items()}
+        futs.update({k: ex.submit(seed_kernels.build, k)
+                     for k in seed_kernels.SOURCES})
         secs = {k: f.result() for k, f in futs.items()}
-    for k, m in mods.items():
+    logs = {k: m.BUILD_LOG for k, m in mods.items()}
+    logs.update(seed_kernels.BUILD_LOG)
+    for k, log in logs.items():
         print(f"{k} built in {secs[k]:.1f} s", flush=True)
-        for ln in m.BUILD_LOG.splitlines():
+        for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print("  " + ln.strip(), flush=True)
 
@@ -1686,7 +2192,8 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         phase("4 align")
-        launches, _, calls = align_phase(d)
+        seed4 = []
+        launches, _, calls = align_phase(d, seed_calls=seed4)
         # the second, warm chunk's launch
         captured_ext("K1", "phase4", calls[min(1, len(calls) - 1)])
 
@@ -1716,7 +2223,13 @@ def main() -> int:
         probe_launches = probe_phase()
 
         phase("12 the fused step")
-        new_path_phases(d, time.perf_counter())
+        paths = new_path_phases(d, time.perf_counter())
+
+        phase("15 seeding kernels vs plain")
+        t0 = time.perf_counter()
+        seeding = seeding_phase(d, seed4, runs["long"]["seed_calls"],
+                                paths["step_150"]["seed_calls"])
+        print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         dict(name="extend_dense", route="cuda", library_ms=None,
@@ -1774,7 +2287,13 @@ def main() -> int:
         dict(name="int16_probe", route="cuda",
              source="bwamem_tpu_torch/csrc/int16_probe.cu",
              replaces="tools/mosaic_probe.py:29",
-             launches=probe_launches, **k4)]}), flush=True)
+             launches=probe_launches, **k4)] + [
+        dict(name=name, route="cuda", library_ms=None,
+             source=SEED_KERNELS[name][1], replaces=SEED_KERNELS[name][0],
+             launches=SEED_LAUNCHES["4"][name],
+             launches_by_phase={t: c[name] for t, c in SEED_LAUNCHES.items()},
+             **seeding["phase 4 warm chunk", name, 0])
+        for name in SEED_KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,15 @@ launch per call, and the wrapper refuses odd column counts, other dtypes
 and misaligned data. The fused step (models/mem.py) equals itself on the
 CPU at 150 bp (one K1 launch) and 1 kb (one K3 launch); a mesh of one
 card equals one device, step and aligner SAM (SE and PE); `align
---n-chips` past the visible cards exits with an error. Every test needs
+--n-chips` past the visible cards exits with an error. The seeding
+kernels S1-S4 (ops/kernels/seed_kernels.py): every call of
+smem_seed_batch (re-seed rounds on, max_occ subsampling) against its
+plain version by the kernel's rule, on reads with N bases and of length
+0, 1, 2 and 19, at 32, 160, 1024 and 4096 columns, with occ2 and
+without, narrow and forced wide, S1 with and without round 3, the
+round-2 lanes with floors above 1; the final seeds equal the plain
+route's and the CPU's, one launch a wrapper call; S4 on every BWT row;
+the wrappers' input checks. Every test needs
 an NVIDIA GPU (marker `cuda`) and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -582,3 +590,137 @@ def test_cli_refuses_more_cards_than_visible(tmp_path):
         env=dict(os.environ, PYTHONPATH=repo))
     assert res.returncode != 0
     assert f"--n-chips {n}" in res.stderr and "visible" in res.stderr
+
+
+# ---- the seeding kernels S1-S4 (ops/kernels/seed_kernels.py) ----
+
+SEED_FORMS = ("occ2", "no_occ2", "occ2_wide", "no_occ2_wide")
+
+
+@pytest.fixture(scope="module")
+def seed_index():
+    """(genome codes, FMIndex) of a 60 kb repeat-rich simulated genome."""
+    from bwamem_tpu_torch.index.build import build_index_from_codes
+    from bwamem_tpu_torch.index.format import Annotation
+    from bwamem_tpu_torch.io.fastx import _CODE_LUT
+    from bwamem_tpu_torch.utils.simgenome import make_repeat_genome
+
+    rng = np.random.default_rng(21)
+    contigs, _ = make_repeat_genome(rng, 60_000, n_contigs=1)
+    g = _CODE_LUT[np.frombuffer(contigs[0][1].encode(), np.uint8)].copy()
+    g[g > 3] = rng.integers(0, 4, int((g > 3).sum()), dtype=np.uint8)
+    return g, build_index_from_codes(g, Annotation(
+        names=["c"], lengths=[len(g)], offsets=[0]), sa_intv=4)
+
+
+def _seed_fm(idx, form, device="cuda"):
+    import dataclasses
+
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+
+    fm = DeviceFMIndex.from_host(idx, device, occ2=form.startswith("occ2"))
+    return dataclasses.replace(fm, wide=True) if "wide" in form else fm
+
+
+@pytest.mark.parametrize("L", [32, 160, 1024, 4096])
+@pytest.mark.parametrize("form", SEED_FORMS)
+def test_seed_kernels_match_plain(seed_index, form, L):
+    """Every call smem_seed_batch makes (re-seed rounds on, max_occ 3) on
+    the card, each kernel against its plain version on the card by its
+    rule (chip_smoke.check_seed_call: S1 and S3 on their emit masks and
+    every emitted entry, S2 on the kept mask and every kept lane, S4 bit
+    for bit), the round-2 lanes with floors above 1; the final seeds equal
+    the plain route's, with one launch a wrapper call; then S1 without
+    round 3, and round 1 alone."""
+    from bwamem_tpu_torch.ops import seeding as sd
+    from bwamem_tpu_torch.ops.kernels import seed_kernels as sk
+    from chip_smoke import (check_seed_call, make_seed_reads,
+                            seed_route_check)
+
+    g, idx = seed_index
+    reads, lens = make_seed_reads(g, np.random.default_rng(L),
+                                  {32: 64, 160: 64, 1024: 16, 4096: 8}[L], L)
+    fm = _seed_fm(idx, form)
+    reads_t = torch.from_numpy(reads).cuda()
+    lens_t = torch.from_numpy(lens).cuda()
+    before = dict(sk.LAUNCHES)
+    calls = seed_route_check(f"{form} {L}", fm, reads_t, lens_t,
+                             sd.SeedConfig(reseed=True, max_occ=3))
+    torch.cuda.synchronize()
+    assert {k: sk.LAUNCHES[k] - before[k] for k in before} == dict(
+        seed_forward=1, seed_backward=2, seed_reseed_forward=1, sa_lookup=1)
+    assert [c[0] for c in calls] == ["seed_forward", "seed_backward",
+                                     "seed_reseed_forward", "seed_backward",
+                                     "sa_lookup"]
+    assert int(calls[3][2]["floor"].max()) > 1
+    for call in calls:
+        assert check_seed_call(f"{form} {L}", call, timed=False)[
+            "max_abs_err"] == 0
+    call = ("seed_forward", (fm, reads_t, lens_t, 19), {})
+    assert check_seed_call("without round 3", call, False)["max_abs_err"] == 0
+    before = dict(sk.LAUNCHES)
+    seed_route_check(f"{form} {L} round 1", fm, reads_t, lens_t,
+                     sd.SeedConfig())
+    assert {k: sk.LAUNCHES[k] - before[k] for k in before} == dict(
+        seed_forward=1, seed_backward=1, seed_reseed_forward=0, sa_lookup=1)
+
+
+@pytest.mark.parametrize("reseed", [False, True])
+def test_smem_seed_batch_card_equals_cpu(seed_index, reseed):
+    """smem_seed_batch on the card (S1-S4) gives the CPU's seeds."""
+    from bwamem_tpu_torch.ops import seeding as sd
+
+    g, idx = seed_index
+    reads, lens = map(torch.from_numpy, make_seed_reads_150(g))
+    cfg = sd.SeedConfig(reseed=reseed)
+    want = sd.smem_seed_batch(_seed_fm(idx, "occ2", "cpu"), reads, lens, cfg)
+    got = sd.smem_seed_batch(_seed_fm(idx, "occ2"), reads.cuda(),
+                             lens.cuda(), cfg)
+    assert len(want["rbeg"]) > 0
+    for k in ("read_id", "qbeg", "qend", "rbeg", "n_occ"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def make_seed_reads_150(g):
+    from chip_smoke import make_seed_reads
+
+    return make_seed_reads(g, np.random.default_rng(150), 256, 160)
+
+
+@pytest.mark.parametrize("form", ["occ2", "occ2_wide"])
+def test_sa_lookup_every_row(seed_index, form):
+    """S4 equals sa_lookup_batch bit for bit on every BWT row."""
+    from bwamem_tpu_torch.ops import fm as fmops
+    from bwamem_tpu_torch.ops.kernels import seed_kernels as sk
+
+    _, idx = seed_index
+    fm = _seed_fm(idx, form)
+    rows = torch.arange(int(fm.seq_len) + 1, device="cuda")
+    before = sk.LAUNCHES["sa_lookup"]
+    got = sk.sa_lookup(fm, rows)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["sa_lookup"] == before + 1
+    assert torch.equal(got, fmops.sa_lookup_batch(fm, rows))
+
+
+def test_seed_wrappers_check_inputs(seed_index):
+    """The wrappers refuse an index on another device and lanes of unlike
+    lengths, and launch nothing for an empty batch."""
+    from bwamem_tpu_torch.ops.kernels import seed_kernels as sk
+
+    g, idx = seed_index
+    reads, lens = (torch.from_numpy(a).cuda()
+                   for a in make_seed_reads_150(g))
+    with pytest.raises(ValueError):
+        sk.seed_forward(_seed_fm(idx, "occ2", "cpu"), reads, lens, 19)
+    fm = _seed_fm(idx, "occ2")
+    with pytest.raises(ValueError):
+        sk.seed_forward(fm, reads, lens[:-1], 19)
+    z = torch.zeros(3, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        sk.seed_backward(fm, reads, z, z[:2], z, z)
+    before = dict(sk.LAUNCHES)
+    planes, r3 = sk.seed_forward(fm, reads[:0], lens[:0], 19)
+    assert planes[3].shape == (0, 162) and r3 is None
+    assert sk.sa_lookup(fm, z[:0].long()).shape == (0,)
+    assert sk.LAUNCHES == before

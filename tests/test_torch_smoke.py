@@ -185,6 +185,48 @@ def test_new_path_phases_on_cpu(world, long_runs, monkeypatch, capsys):
     assert "phase 14 took" in text
 
 
+def test_seeding_phase_on_cpu(world, long_runs, monkeypatch, capsys):
+    """Phase 15 at a tiny size on the CPU: the seeding calls captured from
+    phase 4 (two chunks of 128 reads), phase 6 and the fused step replay
+    against the plain versions with a bound, smem_seed_batch equals the
+    plain route (also on the index without occ2 and forced wide), and the
+    profile runs both routes; CPU tensors launch no kernel."""
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+    from bwamem_tpu_torch.index.format import FMIndex
+
+    monkeypatch.chdir(world)  # the CLI appends to ./time.log
+    seed4 = []
+    chip_smoke.align_phase(world, device="cpu", chunk_reads=128,
+                           seed_calls=seed4)
+    assert [c[0] for c in chip_smoke.warm_chunk(seed4)] == [
+        "seed_forward", "seed_backward", "seed_reseed_forward",
+        "seed_backward", "sa_lookup"]
+    idx = FMIndex.load(os.path.join(world, "idx.bmt"))
+    names, seqs = chip_smoke._batch(os.path.join(world, "reads.fq"), 24)
+    truth = {n: (int(n.split("_")[1]), int(n.split("_")[2])) for n in names}
+    step = chip_smoke.fused_step_phase(
+        {"cpu": DeviceFMIndex.from_host(idx, "cpu")}, "150 bp", names, seqs,
+        truth, "K1", "K3", (8, 4), "cpu")
+    out = chip_smoke.seeding_phase(world, seed4,
+                                   long_runs["long"]["seed_calls"],
+                                   step["seed_calls"], device="cpu",
+                                   timed=False, chunk_reads=128)
+    prof = out.pop("profile")
+    assert set(prof) == {"kernels", "plain"}
+    assert {label for label, _, _ in out} == {
+        "phase 4 warm chunk", "phase 6 1 kb chunk", "fused step 150 bp",
+        "phase 4 warm chunk, index without occ2",
+        "phase 4 warm chunk, index forced wide"}
+    for (label, name, _), rec in out.items():
+        assert rec["max_abs_err"] == 0 and rec["ms"] is None, (label, name)
+        assert rec["bound_ms"] > 0
+    assert ("phase 4 warm chunk", "seed_backward", 1) in out
+    assert all(v == 0 for c in chip_smoke.SEED_LAUNCHES.values()
+               for v in c.values())
+    assert "smem_seed_batch on the kernels == the plain route" in \
+        capsys.readouterr().out
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_refuses_without_gpu_or_repo(tmp_path, alone):
     import torch
