@@ -23,9 +23,18 @@
 // Every function is __host__ __device__: without nvcc the header compiles
 // as plain C++, so the walks' arithmetic can be held against the torch
 // versions on a machine without a card.
+//
+// The lane-group form (the end of the file) splits one row query over the
+// lanes of a group, for seed_forward.cu's S1 walks: each lane reads a
+// slice of the row and computes its part of the query; the group's sum of
+// the parts (the kernel's __shfl_xor_sync reduce; the CPU harness's loop
+// over lanes) plus the finishing terms is the one-thread query. S2, S3, S4
+// and the CPU harness's one-thread walks keep the one-thread form.
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifdef __CUDACC__
 #define BM_HD __host__ __device__ __forceinline__
@@ -120,6 +129,25 @@ BM_HD void load_words(const int32_t* src, uint32_t* dst) {
   for (int i = 0; i < N; ++i) dst[i] = static_cast<uint32_t>(src[i]);
 #endif
 }
+
+// N consecutive 32-bit words (N 2, 4, 8 or 16; 4 N-byte aligned) into
+// registers: one 8-byte load for N = 2, else N / 4 16-byte loads.
+template <int N>
+BM_HD void load_slice(const int32_t* src, uint32_t* dst) {
+#ifdef __CUDA_ARCH__
+  if constexpr (N == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    return;
+  }
+#endif
+  load_words<N>(src, dst);
+}
+
+// Lanes a row query of S1's occ2 walk takes: G of the lane-group form
+// below.
+constexpr int kPairLanes = 2;
 
 // Occ row of BWT$ row i (the sentinel row removed) and its offset in it.
 template <typename T>
@@ -337,6 +365,293 @@ BM_HD T sa_lookup_one(const FMConst& c, const FMPtrs& p, T r, int sa_intv) {
   int64_t v = static_cast<uint32_t>(p.ssa_vals[rank]);
   if (sizeof(T) == 8) v |= static_cast<int64_t>(p.ssa_hi[rank]) << 32;
   return static_cast<T>(v + step_hit);
+}
+
+// ---- the lane-group form ----
+//
+// A walk's step reads, at each end of its interval and for the code c it
+// appends, only the rank of c and the sum of the ranks of the codes above
+// c (and for the occ2 pair step the same two of the pair counts for the
+// previous code c2), so a group sums two or four values, not every code's.
+// Lanes sum in U, an unsigned type of T's width: the one-thread form's
+// int64 sums cast to T, and a 32-bit sum that wraps, agree mod 2^32, and
+// no signed add can overflow.
+template <typename T>
+using Acc = typename std::conditional<sizeof(T) == 8, uint64_t,
+                                      uint32_t>::type;
+
+// Four sums of an occ2 row query for cur code c1 and previous code c2:
+// R[c1], the sum of R[x] over x > c1 (occ2_query's R4), P[c2] and the sum
+// of P[x] over x > c2 (its P4).
+template <typename U>
+struct Occ2Sums {
+  U rc, rs, pc, ps;
+};
+
+// Two sums of an occ row query for code c: rank1 of c, and the sum of
+// rank1 over the codes above c.
+template <typename U>
+struct OccSums {
+  U eq, gt;
+};
+
+// The 4 x 4 bit transpose in every nibble: afterwards d_b holds at bit
+// 4n + w what word w held at bit 4n + b (two rounds of delta swaps). Four
+// occ2 data words become four planes of 32 positions: the current code's
+// low and high bits, the previous code's low and high bits.
+BM_HD void transpose4(uint32_t& d0, uint32_t& d1, uint32_t& d2,
+                      uint32_t& d3) {
+  uint32_t t = ((d0 >> 2) ^ d2) & 0x33333333u;
+  d2 ^= t;
+  d0 ^= t << 2;
+  t = ((d1 >> 2) ^ d3) & 0x33333333u;
+  d3 ^= t;
+  d1 ^= t << 2;
+  t = ((d0 >> 1) ^ d1) & 0x55555555u;
+  d1 ^= t;
+  d0 ^= t << 1;
+  t = ((d2 >> 1) ^ d3) & 0x55555555u;
+  d3 ^= t;
+  d2 ^= t << 1;
+}
+
+// The plane bits of the first rr (0..32) of four data words' positions
+// (occ2_query's masks after transpose4: word w's nibble n is position
+// 8 w + 7 - n). A kernel keeps the 33 values in a table.
+BM_HD uint32_t plane_mask(int rr) {
+  uint32_t m = 0;
+  for (int w = 0; w < 4; ++w) {
+    int q = rr - 8 * w;
+    q = q < 0 ? 0 : (q > 8 ? 8 : q);
+    const uint32_t pm = q == 0 ? 0u : (0xFFFFFFFFu << (32 - 4 * q));
+    m |= (pm & kNib) << w;
+  }
+  return m;
+}
+
+BM_HD uint32_t ones_if(bool b) { return b ? 0xFFFFFFFFu : 0u; }
+
+// The data part of four occ2 data words (d0..d3, positions masked by the
+// plane mask m) for codes c1, c2: matches of c1 and of codes above it
+// (cur), and among the c1 matches those whose previous code is c2 or
+// above it.
+template <typename U>
+BM_HD void occ2_data_part(uint32_t d0, uint32_t d1, uint32_t d2,
+                          uint32_t d3, uint32_t m, int c1, int c2,
+                          Occ2Sums<U>& o) {
+  transpose4(d0, d1, d2, d3);
+  const uint32_t cl = ones_if(c1 & 1), ch = ones_if(c1 & 2);
+  const uint32_t pl = ones_if(c2 & 1), ph = ones_if(c2 & 2);
+  const uint32_t xh = ~(d1 ^ ch);
+  const uint32_t eq = ~(d0 ^ cl) & xh & m;
+  const uint32_t gt = ((d1 & ~ch) | (xh & d0 & ~cl)) & m;
+  const uint32_t yh = ~(d3 ^ ph);
+  const uint32_t peq = eq & ~(d2 ^ pl) & yh;
+  const uint32_t pgt = eq & ((d3 & ~ph) | (yh & d2 & ~pl));
+  o.rc += popc(eq);
+  o.rs += popc(gt);
+  o.pc += popc(peq);
+  o.ps += popc(pgt);
+}
+
+// The count part of occ2 count word wi (0..15: previous code wi / 4,
+// current code wi % 4, the pairs before the row's block).
+template <typename U>
+BM_HD void occ2_count_part(uint32_t v, int wi, int c1, int c2,
+                           Occ2Sums<U>& o) {
+  const int prev = wi >> 2, cur = wi & 3;
+  const U u = cur == c1 ? v : 0u;
+  o.rc += u;
+  o.rs += cur > c1 ? v : 0u;
+  o.pc += prev == c2 ? u : 0u;
+  o.ps += prev > c2 ? u : 0u;
+}
+
+// The count part of the four count words of previous code `prev` (w[x]:
+// current code x), as four occ2_count_part calls sum them.
+template <typename U>
+BM_HD void occ2_count_prev(const uint32_t* w, int prev, int c1, int c2,
+                           Occ2Sums<U>& o) {
+  const U u = sel4(w, c1);
+  o.rc += u;
+  o.rs += (c1 < 1 ? U(w[1]) : U(0)) + (c1 < 2 ? U(w[2]) : U(0)) +
+          (c1 < 3 ? U(w[3]) : U(0));
+  o.pc += prev == c2 ? u : U(0);
+  o.ps += prev > c2 ? u : U(0);
+}
+
+// The part of an occ2 row query (r: the row offset, 0..127) that lane
+// `lane` of a group of G lanes (1, 2, 4 or 8) holds: the row's count words
+// [lane NW, lane NW + NW) in cw and its data words (the row's second 16)
+// of the same range in dw, NW = 16 / G. masks[rr] = plane_mask(rr).
+template <int G, typename U>
+BM_HD Occ2Sums<U> occ2_lane_part(const uint32_t* cw, const uint32_t* dw,
+                                 int lane, int r, int c1, int c2,
+                                 const uint32_t* masks) {
+  constexpr int NW = 16 / G;
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8, "G: 1, 2, 4 or 8");
+  Occ2Sums<U> o{0, 0, 0, 0};
+  if constexpr (NW == 2) {
+    occ2_count_part(cw[0], 2 * lane, c1, c2, o);
+    occ2_count_part(cw[1], 2 * lane + 1, c1, c2, o);
+  } else {
+#pragma unroll
+    for (int q = 0; q < NW; q += 4)
+      occ2_count_prev(cw + q, (lane * NW + q) / 4, c1, c2, o);
+  }
+  if constexpr (NW == 2) {
+    int rr = r - 16 * lane;
+    rr = rr < 0 ? 0 : (rr > 16 ? 16 : rr);
+    occ2_data_part(dw[0], dw[1], 0u, 0u, masks[rr], c1, c2, o);
+  } else {
+#pragma unroll
+    for (int q = 0; q < NW; q += 4) {
+      int rr = r - 8 * (lane * NW + q);
+      rr = rr < 0 ? 0 : (rr > 32 ? 32 : rr);
+      occ2_data_part(dw[q], dw[q + 1], dw[q + 2], dw[q + 3], masks[rr], c1,
+                     c2, o);
+    }
+  }
+  return o;
+}
+
+template <typename U>
+BM_HD Occ2Sums<U> operator+(Occ2Sums<U> a, Occ2Sums<U> b) {
+  return {a.rc + b.rc, a.rs + b.rs, a.pc + b.pc, a.ps + b.ps};
+}
+
+template <typename U>
+BM_HD OccSums<U> operator+(OccSums<U> a, OccSums<U> b) {
+  return {a.eq + b.eq, a.gt + b.gt};
+}
+
+// The occ2 row of BWT$ row i (the sentinel row removed) and its offset.
+template <typename T>
+BM_HD const int32_t* occ2_row(const FMConst& c, const int32_t* occ2, T i,
+                              int& r) {
+  const T prim = static_cast<T>(c.primary);
+  const T j = i - static_cast<T>(i > prim);
+  r = static_cast<int>(j & kO2Mask);
+  return occ2 + static_cast<int64_t>(j >> kO2Shift) * 32;
+}
+
+// A group's summed parts (occ2_lane_part over its G lanes) finished into
+// occ2_query's sums at BWT$ row i: the sentinel row's add-back to the
+// single-code ranks and the bogus sentinel pair's discount, exactly as
+// occ2_query applies them.
+template <typename T, typename U>
+BM_HD Occ2Sums<U> occ2_finish(const FMConst& c, T i, int c1, int c2,
+                              Occ2Sums<U> o) {
+  const T prim = static_cast<T>(c.primary);
+  const T j = i - static_cast<T>(i > prim);
+  const int r = static_cast<int>(j & kO2Mask);
+  const T sa1j = static_cast<T>(c.sa1_j);
+  const bool back_blk = (sa1j >> kO2Shift) < (j >> kO2Shift);
+  const int sa1_c = c.sa1_pair & 3;
+  o.rc += static_cast<U>(sa1_c == c1 && back_blk);
+  o.rs += static_cast<U>(sa1_c > c1 && back_blk);
+  const bool in_blk = (j >> kO2Shift) == (sa1j >> kO2Shift) &&
+                      (c.sa1_j & kO2Mask) < r;
+  // the pair (x << 2) | c1 that is the sentinel pair, if one x in 0..3
+  // makes it so
+  const bool hit = in_blk && c.sa1_pair >= 0 && c.sa1_pair < 16 &&
+                   (c.sa1_pair & 3) == c1;
+  const int x = c.sa1_pair >> 2;
+  o.pc -= static_cast<U>(hit && x == c2);
+  o.ps -= static_cast<U>(hit && x > c2);
+  return o;
+}
+
+// The one-thread occ2 query's sums, for the CPU harness's comparison.
+template <typename T, typename U>
+BM_HD Occ2Sums<U> occ2_sums(const FMConst& c, const int32_t* occ2, T i,
+                            int c1, int c2) {
+  T R4[4], P4[4];
+  occ2_query(c, occ2, i, c1, R4, P4);
+  Occ2Sums<U> o{static_cast<U>(sel4(R4, c1)), 0, static_cast<U>(sel4(P4, c2)),
+                0};
+  for (int x = 0; x < 4; ++x) {
+    if (x > c1) o.rs += static_cast<U>(R4[x]);
+    if (x > c2) o.ps += static_cast<U>(P4[x]);
+  }
+  return o;
+}
+
+// The part of an occ row query (r: the row offset, 0..63) for code `code`
+// that lane `lane` (0 or 1) of a row's lane pair holds: the row's count
+// words [2 lane, 2 lane + 2) in cw and its BWT words of the same range
+// (the row's second four: positions 16 w .. 16 w + 15 of word w, the
+// first in the top bits) in bw.
+template <typename U>
+BM_HD OccSums<U> occ_lane_part(const uint32_t* cw, const uint32_t* bw,
+                               int lane, int r, int code) {
+  OccSums<U> o{0, 0};
+  const uint32_t cl = ones_if(code & 1), ch = ones_if(code & 2);
+  uint32_t eqm = 0, gtm = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int x = 2 * lane + i;
+    o.eq += x == code ? cw[i] : 0u;
+    o.gt += x > code ? cw[i] : 0u;
+    int q = r - 16 * x;
+    q = q < 0 ? 0 : (q > 16 ? 16 : q);
+    const uint32_t m = (q == 0 ? 0u : (0xFFFFFFFFu << (32 - 2 * q))) & kM1;
+    const uint32_t y = bw[i], yh = y >> 1;
+    const uint32_t xh = ~(yh ^ ch);
+    eqm |= (~(y ^ cl) & xh & m) << i;
+    gtm |= (((yh & ~ch) | (xh & y & ~cl)) & m) << i;
+  }
+  o.eq += popc(eqm);
+  o.gt += popc(gtm);
+  return o;
+}
+
+// The one-thread occ query's sums (rank1 over the row), for the CPU
+// harness's comparison.
+template <typename T, typename U>
+BM_HD OccSums<U> occ_sums(const uint32_t* row, int r, int code) {
+  OccSums<U> o{static_cast<U>(rank1<T>(row, r, code)), 0};
+  for (int x = code + 1; x < 4; ++x) o.gt += static_cast<U>(rank1<T>(row, r, x));
+  return o;
+}
+
+// forward_ext2 from the finished sums at l (lo) and at l + s (hi), for
+// bases b1 and b2 (each clamped to 0..3): the same (k1, l1, s1, k2, l2,
+// s2) as the one-thread forward_ext2.
+template <typename T, typename U>
+BM_HD void ext2_from(const FMConst& c, T k, T l, T s, int b1, int b2,
+                     const Occ2Sums<U>& lo, const Occ2Sums<U>& hi, T& k1,
+                     T& l1, T& s1, T& k2, T& l2, T& s2) {
+  const int c1 = 3 - clamp_code(b1);
+  const int c2 = 3 - clamp_code(b2);
+  const T le = static_cast<T>(l + s);
+  const T prim = static_cast<T>(c.primary);
+  s1 = static_cast<T>(hi.rc - lo.rc);
+  l1 = static_cast<T>(c.L2[c1]) + 1 + static_cast<T>(lo.rc);
+  k1 = k + static_cast<T>(l <= prim && prim < le) +
+       static_cast<T>(hi.rs - lo.rs);
+  s2 = static_cast<T>(hi.pc - lo.pc);
+  l2 = static_cast<T>(c.start2[(c2 << 2) | c1]) + static_cast<T>(lo.pc);
+  const T sa1j = static_cast<T>(c.sa1_j);
+  const T r1row = sa1j + static_cast<T>(sa1j >= prim);
+  k2 = k1 + static_cast<T>(l <= r1row && r1row < le &&
+                           (c.sa1_pair & 3) == c1) +
+       static_cast<T>(hi.ps - lo.ps);
+}
+
+// forward_ext1 from the sums at l (lo) and at l + s (hi) for base b
+// (clamped; the sums are for code 3 - b): the same (nk, nl, ns) as the
+// one-thread forward_ext1.
+template <typename T, typename U>
+BM_HD void ext1_from(const FMConst& c, T k, T l, T s, int b,
+                     const OccSums<U>& lo, const OccSums<U>& hi, T& nk,
+                     T& nl, T& ns) {
+  const int cc = 3 - clamp_code(b);
+  const T prim = static_cast<T>(c.primary);
+  const T sent = static_cast<T>(l <= prim && prim < static_cast<T>(l + s));
+  nk = k + sent + static_cast<T>(hi.gt - lo.gt);
+  nl = static_cast<T>(c.L2[cc]) + 1 + static_cast<T>(lo.eq);
+  ns = static_cast<T>(hi.eq - lo.eq);
 }
 
 }  // namespace fmi

@@ -1,7 +1,7 @@
 // Forward FM walks of SMEM seeding, for Hopper (sm_90a): the round-1
 // forward walk of each read (seed_forward, with the round-3 LAST-like
-// automaton fused into it) and the round-2 split re-seed walks
-// (seed_reseed_forward).
+// automaton as a second walk of the same read) and the round-2 split
+// re-seed walks (seed_reseed_forward).
 //
 // Replaces the XLA-compiled loops of bwamem_tpu/ops/seeding.py
 // (smem_seed_batch): _forward_pass2 (:176) on occ2 indexes, _forward_pass
@@ -21,20 +21,34 @@
 //     relative offset j. `filled` must be zero on entry (the wrapper
 //     allocates it with zeros); kb, sb and eb are written where filled.
 //
-// What bounds it on this card: each trip is a chain of dependent table
-// reads, one occ2 row of 128 B at each of the interval's two ends (two
-// 32 B occ rows a base without occ2), so a walk is bound by the latency
-// of those reads, not by bandwidth: at phase 4's shape (16384 reads, 81
-// trips) the rows read are about 0.34 GB, 0.1 ms at 3.35 TB/s, and the
-// 4.6 Mbp world's occ2 table (~9 MB) sits in the 50 MB L2.
+// What bounds S1 on this card: each trip is a chain of dependent table
+// reads, one occ2 row of 128 B at each of the interval's two ends (one 32 B
+// occ row a base without occ2), and the row queries' popcounts. The table
+// (~9 MB on the 4.6 Mbp world) sits in the 50 MB L2, so bytes do not bound
+// it: the latency of the chain does, unless enough walks are in flight to
+// hide it, and then the instructions do (~350 a lane a trip at G = 2).
 //
-// Layout (GPUSeed's find_seed_intervals_fow, one thread per read): the
-// walk state (k, l, s, seg) and the round-3 state stay in registers for
-// the whole read, the small tables (L2, the 2-mer table) sit in shared
-// memory, and each trip writes its plane columns. Many walks in flight
-// (a thread each, 128 a block) hide the row latency. The round-2 lanes
-// are one thread each too, and a lane stops at its death: after it the
-// torch version only writes zeros.
+// Layout of S1 (the lane-group form of csrc/fm_index.cuh): a walk is a
+// group of 2G lanes, the interval's two ends on the group's two halves,
+// each end's row query split over G lanes (a 128 B occ2 row: each lane
+// reads 16/G of its 16 count words and, where they lie before the row
+// offset, 16/G of its 16 data words, and counts its data words' matches
+// on bit planes, four words a transpose; a 32 B occ row: G = 2, two count
+// and two BWT words a lane), summed by a __shfl_xor_sync reduce and
+// swapped between the halves, so every lane of the group holds the step's
+// result and the walk's state. G is fmi::kPairLanes (2): 2 lanes a row ran
+// fastest over the main path's shapes taken together (1 lane about as
+// fast at 16384 reads, 1.4x slower at 1 kb; 8 lanes 2-2.6x slower at
+// 16384 reads; PERF.md §6). Round 3 is a walk of its own on other warps
+// (a warp runs one automaton, so its lanes never diverge on it); the grid has one one-warp
+// block per 32 / 2G walks, so 512, 4096 and 16384 reads all spread over
+// the 132 SMs. A group prefetches 2G trips' bases (a lane each, then a
+// shuffle a trip), and each trip's plane columns stay in the registers of
+// one lane of the group until 2G trips are done; then the group writes
+// them as one contiguous run of the read's row. A warp runs its longest walk's trips to the first trip past
+// its read's end (after it a walk emits nothing) and zero-fills the rest
+// of each emit row. The round-2 lanes are one thread each, and a lane
+// stops at its death: after it the torch version only writes zeros.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/kernels/build.py)
@@ -58,7 +72,7 @@ struct FwdArgs {
   const int32_t* lens;   // (B,)
   int B, L, NP;
   int min_seed_len;
-  bool strategy;         // round 3 fused in
+  bool strategy;         // round 3 as well
   int min_len3;
   int64_t max_intv3;
   int32_t* seg;          // (B, NP)
@@ -71,150 +85,153 @@ struct FwdArgs {
   uint8_t* e3;
 };
 
+// One plane column: emit, and seg (x for round 3), k and s.
 template <typename T>
-BM_HD void put(const FwdArgs<T>& a, int64_t o, bool e, int32_t seg, T k,
-               T s) {
-  a.emit[o] = e;
-  if (e) {
-    a.seg[o] = seg;
-    a.k[o] = k;
-    a.s[o] = s;
-  }
-}
+struct Col {
+  bool e;
+  int32_t v;
+  T k, s;
+};
 
+// A walk's automaton state: the interval (k, l, s) and seg (round 1) or
+// x (round 3).
 template <typename T>
-BM_HD void put3(const FwdArgs<T>& a, int64_t o, bool e, int32_t x, T k,
-                T s) {
-  a.e3[o] = e;
-  if (e) {
-    a.x3[o] = x;
-    a.k3[o] = k;
-    a.s3[o] = s;
-  }
-}
+struct Walk {
+  T k, l, s;
+  int32_t v;
+};
 
 template <typename T>
 BM_HD T pick(bool c1, T a, bool c2, T b) {
   return c1 ? a : (c2 ? b : static_cast<T>(0));
 }
 
-// _forward_pass2 of read b (with _forward_pass2's strategy trips when
-// a.strategy): two bases a trip from one occ2 gather at each end.
-template <typename T>
-BM_HD void walk_pairs(const FMConst& c, const int32_t* occ2,
-                      const FwdArgs<T>& a, int b) {
-  const int32_t* rd = a.reads + static_cast<int64_t>(b) * a.L;
-  const int len = a.lens[b];
-  const int64_t o = static_cast<int64_t>(b) * a.NP;
-  const int64_t o3 = static_cast<int64_t>(b) * a.L;
-  T k = 0, l = 0, s = 0, k3 = 0, l3 = 0, s3 = 0;
-  int32_t seg = 0, x3 = 0;
-  for (int i = 0; i < a.NP; i += 2) {
-    const int b1 = i < a.L ? rd[i] : 4;
-    const int b2 = i + 1 < a.L ? rd[i + 1] : 4;
-    const bool v1 = i < len && b1 < 4;
-    const bool v2 = i + 1 < len && b2 < 4;
-    const bool active = s > 0;
-    T k1, l1, s1, k2, l2, s2;
-    fmi::forward_ext2(c, occ2, k, l, s, b1, b2, k1, l1, s1, k2, l2, s2);
-    T ik1, il1, is1, ik2, il2, is2, pk, pl, ps;
-    fmi::init1(c, b1, ik1, il1, is1);
-    fmi::init1(c, b2, ik2, il2, is2);
-    fmi::init2(c, b1, b2, pk, pl, ps);
-
-    // sub-step A (position i)
-    const T s1v = v1 ? s1 : static_cast<T>(0);
-    put(a, o + i, active && s1v != s && i >= a.min_seed_len, seg, k, s);
-    const bool ext1 = v1 && active && s1 > 0;
-    const bool rs1 = v1 && !ext1;
-    const T kA = pick(ext1, k1, rs1, ik1);
-    const T sA = pick(ext1, s1, rs1, is1);
-    const int32_t segA = ext1 ? seg : i;
-
-    // sub-step B (position i + 1): the pair path, the 2-mer table or dead
-    const T sB = pick(ext1, s2, rs1, ps);
-    const T kB = pick(ext1, k2, rs1, pk);
-    const T lB = pick(ext1, l2, rs1, pl);
-    const bool activeB = sA > 0;
-    const T sBv = v2 ? sB : static_cast<T>(0);
-    put(a, o + i + 1, activeB && sBv != sA && i + 1 >= a.min_seed_len, segA,
-        kA, sA);
-    const bool ext2 = v2 && activeB && sB > 0;
-    const bool rs2 = v2 && !ext2;
-    k = pick(ext2, kB, rs2, ik2);
-    l = pick(ext2, lB, rs2, il2);
-    s = pick(ext2, sB, rs2, is2);
-    seg = ext2 ? segA : i + 1;
-    if (!a.strategy) continue;
-
-    // the round-3 automaton, both sub-steps
-    T k31, l31, s31, k32, l32, s32;
-    fmi::forward_ext2(c, occ2, k3, l3, s3, b1, b2, k31, l31, s31, k32, l32,
-                      s32);
-    const bool walkA = v1 && x3 < i;
-    const bool e3A = walkA && static_cast<int64_t>(s31) < a.max_intv3 &&
-                     i - x3 >= a.min_len3;
-    if (i < a.L) put3(a, o3 + i, e3A, x3, k31, s31);
-    const bool startA = v1 && x3 == i;
-    const bool contA = walkA && !e3A;
-    const int32_t x3A = (!v1 || e3A) ? i + 1 : x3;
-    const T k3B = pick(contA, k32, startA, pk);
-    const T l3B = pick(contA, l32, startA, pl);
-    const T s3B = pick(contA, s32, startA, ps);
-    const bool walkB = v2 && x3A < i + 1;
-    const bool e3B = walkB && static_cast<int64_t>(s3B) < a.max_intv3 &&
-                     i + 1 - x3A >= a.min_len3;
-    if (i + 1 < a.L) put3(a, o3 + i + 1, e3B, x3A, k3B, s3B);
-    const bool startB = v2 && x3A == i + 1;
-    const bool contB = walkB && !e3B;
-    k3 = pick(contB, k3B, startB, ik2);
-    l3 = pick(contB, l3B, startB, il2);
-    s3 = pick(contB, s3B, startB, is2);
-    x3 = (!v2 || e3B) ? i + 2 : x3A;
-  }
+// Trips a walk of a read of `len` bases runs (pairs: two bases a trip): to
+// the first trip that starts past the read's last base; after it the walk
+// is dead and emits nothing (its interval is 0 and no base is valid).
+BM_HD int walk_trips(int len, int L, bool pairs) {
+  const int n = len < 0 ? 0 : (len > L ? L : len);
+  const int np = pairs ? (L + 2) / 2 : L + 1;
+  const int t = pairs ? n / 2 + 2 : n + 1;
+  return t < np ? t : np;
 }
 
-// _forward_pass of read b (emit mode "shrink"), with _seed_strategy_pass
-// in the same trips when a.strategy: one base a trip.
+// One trip of _forward_pass2's round-1 automaton at positions i and i + 1
+// (bases b1, b2, valid v1, v2), from the pair step of its interval
+// (forward_ext2: k1.. after b1, k2.. after both): the columns of both
+// positions, and the state after the trip.
 template <typename T>
-BM_HD void walk_single(const FMConst& c, const int32_t* occ,
-                       const FwdArgs<T>& a, int b) {
-  const int32_t* rd = a.reads + static_cast<int64_t>(b) * a.L;
-  const int len = a.lens[b];
-  const int64_t o = static_cast<int64_t>(b) * a.NP;
-  const int64_t o3 = static_cast<int64_t>(b) * a.L;
-  T k = 0, l = 0, s = 0, k3 = 0, l3 = 0, s3 = 0;
-  int32_t seg = 0, x3 = 0;
-  for (int i = 0; i <= a.L; ++i) {
-    const int base = i < a.L ? rd[i] : 4;
-    const bool valid = i < len && base < 4;
-    const bool active = s > 0;
-    T nk, nl, ns;
-    fmi::forward_ext1(c, occ, k, l, s, base, nk, nl, ns);
-    const T oks = valid ? ns : static_cast<T>(0);
-    put(a, o + i, active && oks != s && i >= a.min_seed_len, seg, k, s);
-    const bool ext = valid && active && oks > 0;
-    const bool rs = valid && !ext;
-    T ik, il, is;
-    fmi::init1(c, base, ik, il, is);
-    k = pick(ext, nk, rs, ik);
-    l = pick(ext, nl, rs, il);
-    s = pick(ext, oks, rs, is);
-    seg = ext ? seg : i;
-    if (!a.strategy || i >= a.L) continue;
+BM_HD void r1_pair_trip(const FMConst& c, int msl, int i, int b1, int b2,
+                        bool v1, bool v2, T k1, T l1, T s1, T k2, T l2,
+                        T s2, Walk<T>& w, Col<T>& eA, Col<T>& eB) {
+  T ik1, il1, is1, ik2, il2, is2, pk, pl, ps;
+  fmi::init1(c, b1, ik1, il1, is1);
+  fmi::init1(c, b2, ik2, il2, is2);
+  fmi::init2(c, b1, b2, pk, pl, ps);
+  // sub-step A (position i)
+  const bool active = w.s > 0;
+  const T s1v = v1 ? s1 : static_cast<T>(0);
+  eA = {active && s1v != w.s && i >= msl, w.v, w.k, w.s};
+  const bool ext1 = v1 && active && s1 > 0;
+  const bool rs1 = v1 && !ext1;
+  const T kA = pick(ext1, k1, rs1, ik1);
+  const T sA = pick(ext1, s1, rs1, is1);
+  const int32_t segA = ext1 ? w.v : i;
+  // sub-step B (position i + 1): the pair path, the 2-mer table or dead
+  const T sB = pick(ext1, s2, rs1, ps);
+  const T kB = pick(ext1, k2, rs1, pk);
+  const T lB = pick(ext1, l2, rs1, pl);
+  const bool activeB = sA > 0;
+  const T sBv = v2 ? sB : static_cast<T>(0);
+  eB = {activeB && sBv != sA && i + 1 >= msl, segA, kA, sA};
+  const bool ext2 = v2 && activeB && sB > 0;
+  const bool rs2 = v2 && !ext2;
+  w.k = pick(ext2, kB, rs2, ik2);
+  w.l = pick(ext2, lB, rs2, il2);
+  w.s = pick(ext2, sB, rs2, is2);
+  w.v = ext2 ? segA : i + 1;
+}
 
-    const bool walking = valid && x3 < i;
-    T kn, ln, sn;
-    fmi::forward_ext1(c, occ, k3, l3, s3, base, kn, ln, sn);
-    const bool e3 = walking && static_cast<int64_t>(sn) < a.max_intv3 &&
-                    i - x3 >= a.min_len3;
-    put3(a, o3 + i, e3, x3, kn, sn);
-    const bool start = valid && x3 == i;
-    const bool cont = walking && !e3;
-    k3 = pick(cont, kn, start, ik);
-    l3 = pick(cont, ln, start, il);
-    s3 = pick(cont, sn, start, is);
-    x3 = (!valid || e3) ? i + 1 : x3;
+// One trip of _forward_pass2's round-3 automaton (strategy (min_len3,
+// max_intv3)), as r1_pair_trip; its columns lie in planes of width L.
+template <typename T>
+BM_HD void r3_pair_trip(const FMConst& c, int min_len3, int64_t max_intv3,
+                        int i, int b1, int b2, bool v1, bool v2, T k31,
+                        T l31, T s31, T k32, T l32, T s32, Walk<T>& w,
+                        Col<T>& eA, Col<T>& eB) {
+  (void)l31;
+  T ik2, il2, is2, pk, pl, ps;
+  fmi::init1(c, b2, ik2, il2, is2);
+  fmi::init2(c, b1, b2, pk, pl, ps);
+  const bool walkA = v1 && w.v < i;
+  const bool e3A = walkA && static_cast<int64_t>(s31) < max_intv3 &&
+                   i - w.v >= min_len3;
+  eA = {e3A, w.v, k31, s31};
+  const bool startA = v1 && w.v == i;
+  const bool contA = walkA && !e3A;
+  const int32_t x3A = (!v1 || e3A) ? i + 1 : w.v;
+  const T k3B = pick(contA, k32, startA, pk);
+  const T l3B = pick(contA, l32, startA, pl);
+  const T s3B = pick(contA, s32, startA, ps);
+  const bool walkB = v2 && x3A < i + 1;
+  const bool e3B = walkB && static_cast<int64_t>(s3B) < max_intv3 &&
+                   i + 1 - x3A >= min_len3;
+  eB = {e3B, x3A, k3B, s3B};
+  const bool startB = v2 && x3A == i + 1;
+  const bool contB = walkB && !e3B;
+  w.k = pick(contB, k3B, startB, ik2);
+  w.l = pick(contB, l3B, startB, il2);
+  w.s = pick(contB, s3B, startB, is2);
+  w.v = (!v2 || e3B) ? i + 2 : x3A;
+}
+
+// One trip of _forward_pass's round-1 automaton (emit mode "shrink") at
+// position i, from the forward step (nk, nl, ns) of its interval by base.
+template <typename T>
+BM_HD void r1_single_trip(const FMConst& c, int msl, int i, int base,
+                          bool valid, T nk, T nl, T ns, Walk<T>& w,
+                          Col<T>& e) {
+  const bool active = w.s > 0;
+  const T oks = valid ? ns : static_cast<T>(0);
+  e = {active && oks != w.s && i >= msl, w.v, w.k, w.s};
+  const bool ext = valid && active && oks > 0;
+  const bool rs = valid && !ext;
+  T ik, il, is;
+  fmi::init1(c, base, ik, il, is);
+  w.k = pick(ext, nk, rs, ik);
+  w.l = pick(ext, nl, rs, il);
+  w.s = pick(ext, oks, rs, is);
+  w.v = ext ? w.v : i;
+}
+
+// One trip of _seed_strategy_pass's automaton at position i (< L).
+template <typename T>
+BM_HD void r3_single_trip(const FMConst& c, int min_len3, int64_t max_intv3,
+                          int i, int base, bool valid, T kn, T ln, T sn,
+                          Walk<T>& w, Col<T>& e) {
+  const bool walking = valid && w.v < i;
+  const bool e3 = walking && static_cast<int64_t>(sn) < max_intv3 &&
+                  i - w.v >= min_len3;
+  e = {e3, w.v, kn, sn};
+  const bool start = valid && w.v == i;
+  const bool cont = walking && !e3;
+  T ik, il, is;
+  fmi::init1(c, base, ik, il, is);
+  w.k = pick(cont, kn, start, ik);
+  w.l = pick(cont, ln, start, il);
+  w.s = pick(cont, sn, start, is);
+  w.v = (!valid || e3) ? i + 1 : w.v;
+}
+
+// Plane column i of a read's row (round 1: its (seg, k, s, emit) planes at
+// offset o = row NP; round 3: its (x, k, s, emit) planes at o = row L).
+template <typename T>
+BM_HD void put_col(const FwdArgs<T>& a, bool r3, int64_t o, const Col<T>& e) {
+  (r3 ? a.e3 : a.emit)[o] = e.e;
+  if (e.e) {
+    (r3 ? a.x3 : a.seg)[o] = e.v;
+    (r3 ? a.k3 : a.k)[o] = e.k;
+    (r3 ? a.s3 : a.s)[o] = e.s;
   }
 }
 
@@ -308,19 +325,171 @@ BM_HD void walk_reseed(const FMConst& c, const int32_t* occ,
 }
 
 #ifdef __CUDACC__
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // S3's blocks
+// S1's blocks: one warp, so that even a launch of few walks (a fastmap
+// call of 512 reads: 128 warps) spreads over the SMs
+constexpr int kWalkThreads = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T, bool kPairs>
-__global__ void __launch_bounds__(kThreads)
-    seed_forward_kernel(fmi::FMPtrs p, FwdArgs<T> a) {
+template <typename U>
+__device__ __forceinline__ fmi::Occ2Sums<U> shfl_xor(fmi::Occ2Sums<U> v,
+                                                      int m) {
+  return {__shfl_xor_sync(kFull, v.rc, m), __shfl_xor_sync(kFull, v.rs, m),
+          __shfl_xor_sync(kFull, v.pc, m), __shfl_xor_sync(kFull, v.ps, m)};
+}
+
+template <typename U>
+__device__ __forceinline__ fmi::OccSums<U> shfl_xor(fmi::OccSums<U> v,
+                                                     int m) {
+  return {__shfl_xor_sync(kFull, v.eq, m), __shfl_xor_sync(kFull, v.gt, m)};
+}
+
+// The walks of one warp: `per` walks of W = 32 / per lanes each; warps
+// below nw1 walk round 1, the rest round 3 (of the same reads).
+struct WarpWalk {
+  int lane, q, b, width;
+  bool in, r3;
+  int64_t o;  // the read's row in its planes
+};
+
+template <typename T>
+__device__ __forceinline__ bool warp_walk(const FwdArgs<T>& a, int nw1,
+                                          int nwarps, int W, WarpWalk& ww) {
+  const int warp = blockIdx.x * (kWalkThreads / 32) + threadIdx.x / 32;
+  if (warp >= nwarps) return false;
+  ww.lane = threadIdx.x & 31;
+  ww.q = ww.lane % W;
+  ww.r3 = warp >= nw1;
+  ww.b = (ww.r3 ? warp - nw1 : warp) * (32 / W) + ww.lane / W;
+  ww.in = ww.b < a.B;
+  ww.width = ww.r3 ? a.L : a.NP;
+  ww.o = static_cast<int64_t>(ww.in ? ww.b : 0) * ww.width;
+  return true;
+}
+
+// The occ2 pair walk (_forward_pass2's trips), G lanes an end.
+template <typename T>
+__global__ void __launch_bounds__(kWalkThreads)
+    seed_pairs_kernel(fmi::FMPtrs p, FwdArgs<T> a, int nw1, int nwarps) {
+  constexpr int G = fmi::kPairLanes, W = 2 * G, NW = 16 / G;
+  using U = fmi::Acc<T>;
+  __shared__ FMConst c;
+  __shared__ uint32_t masks[33];
+  for (int t = threadIdx.x; t <= 32; t += kWalkThreads)
+    masks[t] = fmi::plane_mask(t);
+  fmi::load_const(c, p);
+  WarpWalk ww;
+  if (!warp_walk(a, nw1, nwarps, W, ww)) return;
+  const int end = ww.q / G, ql = ww.q % G;
+  const int len = ww.in ? a.lens[ww.b] : 0;
+  const int trips = __reduce_max_sync(kFull, walk_trips(len, a.L, true));
+  const int32_t* rd = a.reads + static_cast<int64_t>(ww.in ? ww.b : 0) * a.L;
+  Walk<T> w{0, 0, 0, 0};
+  Col<T> keepA{}, keepB{};
+  for (int t0 = 0; t0 < trips; t0 += W) {
+    const int ip = 2 * (t0 + ww.q);
+    const int bp1 = ww.in && ip < a.L ? rd[ip] : 4;
+    const int bp2 = ww.in && ip + 1 < a.L ? rd[ip + 1] : 4;
+    const int nt = trips - t0 < W ? trips - t0 : W;
+    for (int u = 0; u < nt; ++u) {
+      const int i = 2 * (t0 + u);
+      const int b1 = __shfl_sync(kFull, bp1, u, W);
+      const int b2 = __shfl_sync(kFull, bp2, u, W);
+      const bool v1 = i < len && b1 < 4;
+      const bool v2 = i + 1 < len && b2 < 4;
+      const int c1 = 3 - fmi::clamp_code(b1), c2 = 3 - fmi::clamp_code(b2);
+      const T x = end ? static_cast<T>(w.l + w.s) : w.l;
+      int r;
+      const int32_t* row = fmi::occ2_row(c, p.occ2, x, r);
+      uint32_t cw[NW], dw[NW] = {};
+      fmi::load_slice<NW>(row + ql * NW, cw);
+      // data words all at or past the row offset count nothing: unread
+      if (8 * NW * ql < r) fmi::load_slice<NW>(row + 16 + ql * NW, dw);
+      fmi::Occ2Sums<U> part =
+          fmi::occ2_lane_part<G, U>(cw, dw, ql, r, c1, c2, masks);
+#pragma unroll
+      for (int m = G / 2; m > 0; m >>= 1) part = part + shfl_xor(part, m);
+      part = fmi::occ2_finish<T, U>(c, x, c1, c2, part);
+      const fmi::Occ2Sums<U> other = shfl_xor(part, G);
+      T k1, l1, s1, k2, l2, s2;
+      fmi::ext2_from<T, U>(c, w.k, w.l, w.s, b1, b2, end ? other : part,
+                           end ? part : other, k1, l1, s1, k2, l2, s2);
+      Col<T> eA, eB;
+      if (ww.r3)
+        r3_pair_trip<T>(c, a.min_len3, a.max_intv3, i, b1, b2, v1, v2, k1,
+                        l1, s1, k2, l2, s2, w, eA, eB);
+      else
+        r1_pair_trip<T>(c, a.min_seed_len, i, b1, b2, v1, v2, k1, l1, s1,
+                        k2, l2, s2, w, eA, eB);
+      if (ww.q == u) {
+        keepA = eA;
+        keepB = eB;
+      }
+    }
+    // the group's 2G trips as one run of the row: lane q's two columns
+    if (ww.in && ww.q < nt) {
+      if (ip < ww.width) put_col(a, ww.r3, ww.o + ip, keepA);
+      if (ip + 1 < ww.width) put_col(a, ww.r3, ww.o + ip + 1, keepB);
+    }
+  }
+  if (ww.in)
+    for (int i = 2 * trips + ww.q; i < ww.width; i += W)
+      (ww.r3 ? a.e3 : a.emit)[ww.o + i] = 0;
+}
+
+// The single-base walk (_forward_pass's and _seed_strategy_pass's trips):
+// an occ row's query on a lane pair, four lanes a walk.
+template <typename T>
+__global__ void __launch_bounds__(kWalkThreads)
+    seed_single_kernel(fmi::FMPtrs p, FwdArgs<T> a, int nw1, int nwarps) {
+  constexpr int W = 4;
+  using U = fmi::Acc<T>;
   __shared__ FMConst c;
   fmi::load_const(c, p);
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= a.B) return;
-  if (kPairs)
-    walk_pairs<T>(c, p.occ2, a, b);
-  else
-    walk_single<T>(c, p.occ, a, b);
+  WarpWalk ww;
+  if (!warp_walk(a, nw1, nwarps, W, ww)) return;
+  const int end = ww.q / 2, ql = ww.q % 2;
+  const int len = ww.in ? a.lens[ww.b] : 0;
+  const int trips = __reduce_max_sync(kFull, walk_trips(len, a.L, false));
+  const int32_t* rd = a.reads + static_cast<int64_t>(ww.in ? ww.b : 0) * a.L;
+  Walk<T> w{0, 0, 0, 0};
+  Col<T> keep{};
+  for (int t0 = 0; t0 < trips; t0 += W) {
+    const int ip = t0 + ww.q;
+    const int bp = ww.in && ip < a.L ? rd[ip] : 4;
+    const int nt = trips - t0 < W ? trips - t0 : W;
+    for (int u = 0; u < nt; ++u) {
+      const int i = t0 + u;
+      const int base = __shfl_sync(kFull, bp, u, W);
+      const bool valid = i < len && base < 4;
+      const T x = end ? static_cast<T>(w.l + w.s) : w.l;
+      int r;
+      const int32_t* row = fmi::occ_row(c, p.occ, x, r);
+      uint32_t cw[2], bw[2] = {};
+      fmi::load_slice<2>(row + 2 * ql, cw);
+      if (32 * ql < r) fmi::load_slice<2>(row + 4 + 2 * ql, bw);
+      fmi::OccSums<U> part = fmi::occ_lane_part<U>(
+          cw, bw, ql, r, 3 - fmi::clamp_code(base));
+      part = part + shfl_xor(part, 1);
+      const fmi::OccSums<U> other = shfl_xor(part, 2);
+      T nk, nl, ns;
+      fmi::ext1_from<T, U>(c, w.k, w.l, w.s, base, end ? other : part,
+                           end ? part : other, nk, nl, ns);
+      Col<T> e;
+      if (ww.r3)
+        r3_single_trip<T>(c, a.min_len3, a.max_intv3, i, base, valid, nk,
+                          nl, ns, w, e);
+      else
+        r1_single_trip<T>(c, a.min_seed_len, i, base, valid, nk, nl, ns, w,
+                          e);
+      if (ww.q == u) keep = e;
+    }
+    if (ww.in && ww.q < nt && ip < ww.width)
+      put_col(a, ww.r3, ww.o + ip, keep);
+  }
+  if (ww.in)
+    for (int i = trips + ww.q; i < ww.width; i += W)
+      (ww.r3 ? a.e3 : a.emit)[ww.o + i] = 0;
 }
 
 template <typename T, bool kPairs>
@@ -336,11 +505,15 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch_forward(const fmi::FMPtrs& p, const FwdArgs<T>& a, bool pairs,
                    cudaStream_t st) {
-  const int grid = (a.B + kThreads - 1) / kThreads;
+  // walks a warp: 32 / 2G on occ2, 8 without
+  const int per = pairs ? 16 / fmi::kPairLanes : 8;
+  const int nw1 = (a.B + per - 1) / per;
+  const int nwarps = nw1 * (a.strategy ? 2 : 1);
+  const int grid = (nwarps + kWalkThreads / 32 - 1) / (kWalkThreads / 32);
   if (pairs)
-    seed_forward_kernel<T, true><<<grid, kThreads, 0, st>>>(p, a);
+    seed_pairs_kernel<T><<<grid, kWalkThreads, 0, st>>>(p, a, nw1, nwarps);
   else
-    seed_forward_kernel<T, false><<<grid, kThreads, 0, st>>>(p, a);
+    seed_single_kernel<T><<<grid, kWalkThreads, 0, st>>>(p, a, nw1, nwarps);
   return static_cast<int>(cudaGetLastError());
 }
 

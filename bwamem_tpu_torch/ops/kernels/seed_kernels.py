@@ -2,7 +2,7 @@
 ops/seeding.smem_seed_batch): the wrappers and their plain versions.
 
   S1 seed_forward         csrc/seed_forward.cu   round-1 forward walk of
-                          each read, with round 3 fused into it
+                          each read, and round 3's in the same launch
   S2 seed_backward        csrc/seed_backward.cu  each candidate lane
                           extended to the left (rounds 1 and 2)
   S3 seed_reseed_forward  csrc/seed_forward.cu   round-2 re-seed walks
@@ -26,6 +26,9 @@ emitted entry (the rest of those planes is left unwritten); S2 on every
 lane that ops/seeding._containment_filter keeps, so on the final seeds
 (its early kill runs within a warp only, so the raw (qb, k, s) of a lane
 that either version killed may differ).
+
+S1 walks each read on a group of lanes (csrc/fm_index.cuh's lane-group
+form): two lanes a row query, each end of the interval on a lane pair.
 """
 from __future__ import annotations
 

@@ -26,10 +26,12 @@ Same stages, same output order:
 
 Mode "smem" runs its walks as hand-written CUDA kernels on a CUDA tensor
 (kernels/seed_kernels: S1 the round-1 forward walk with round 3 in the
-same trips, S2 the backward walks of rounds 1 and 2, S3 the round-2
+same launch, S2 the backward walks of rounds 1 and 2, S3 the round-2
 re-seed walks, S4 the SA lookup); the walk functions here are their
-plain versions, which a CPU tensor runs. Modes "mem" and "fwdmem" and
-bowtie_seed_batch run on torch ops on either device.
+plain versions, which a CPU tensor runs. Mode "mem" takes S1 for its
+forward walk, and every mode and bowtie_seed_batch S4 for the SA lookup;
+the rest of modes "mem" and "fwdmem" and of bowtie_seed_batch runs on
+torch ops on either device.
 
 Torch has dynamic shapes, so every compaction is exact (nonzero on the
 emission mask, which keeps order). The JAX package's fixed pools, their
@@ -501,14 +503,12 @@ def _reseed_forward(fm, reads, lens, lrid, lx, lfloor, min_seed_len: int):
     return kb, sb, eb, fill
 
 
-def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ,
-                        lookup=fmops.sa_lookup_batch):
+def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
     """Per-SMEM occurrence list: subsample with step s // max_occ when
     s > max_occ (at most max_occ entries, the mem_chain rule,
     src/bwamem.c:426-431), then resolve each row's text position with an
-    SA walk (`lookup`: fm.sa_lookup_batch, or S4's wrapper
-    kernels/seed_kernels.sa_lookup). Seeds come out in (candidate, SA
-    rank) order."""
+    SA walk (S4, kernels/seed_kernels.sa_lookup). Seeds come out in
+    (candidate, SA rank) order."""
     s_v = torch.where(keep, s, 0).to(torch.int64)
     step = torch.where(s_v > max_occ, s_v // max_occ, 1)
     count = torch.where(s_v > 0, (s_v + step - 1) // step, 0)
@@ -518,7 +518,7 @@ def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ,
     first = count.cumsum(0) - count
     off = torch.arange(cand.shape[0], device=s.device) - first[cand]
     rows = k[cand].to(torch.int64) + off * step[cand]
-    rbeg = lookup(fm, rows)
+    rbeg = seed_kernels.sa_lookup(fm, rows)
     return dict(read_id=rid[cand].to(torch.int32),
                 qbeg=qbeg[cand].to(torch.int32),
                 qend=qend[cand].to(torch.int32), rbeg=rbeg, n_occ=s[cand])
@@ -551,16 +551,12 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
     if cfg.mode == "fwdmem":
         start, k, s, emit = _forward_pass(fm, reads, lens, cfg.min_seed_len,
                                           emit_mode="segment")
-    elif cfg.mode == "smem":
-        # S1: round 3 rides the round-1 walk
+    else:
+        # S1: round 3 rides the round-1 walk's launch
         (start, k, s, emit), r3_planes = seed_kernels.seed_forward(
             fm, reads, lens, cfg.min_seed_len,
             strategy=((cfg.min_seed_len, cfg.max_mem_intv)
                       if reseed and cfg.max_mem_intv > 0 else None))
-    elif fm.has_occ2:
-        start, k, s, emit = _forward_pass2(fm, reads, lens, cfg.min_seed_len)
-    else:
-        start, k, s, emit = _forward_pass(fm, reads, lens, cfg.min_seed_len)
     NP = emit.shape[1]
     end = torch.arange(NP, dtype=torch.int32, device=dev).expand(B, NP)
     idx, (start, end, k, s) = _compact(emit, start, end, k, s)
@@ -631,10 +627,7 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         perm = torch.argsort(key, stable=True)
         rid, qbeg, end, k, s = (a[perm] for a in (rid, qbeg, end, k, s))
         keep = torch.ones_like(rid, dtype=torch.bool)
-    out = _expand_occurrences(
-        fm, rid, qbeg, end, k, s, keep, cfg.max_occ,
-        lookup=(seed_kernels.sa_lookup if cfg.mode == "smem"
-                else fmops.sa_lookup_batch))
+    out = _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
     out["cand_pool"] = cand_pool
     out["c_need"] = c_need
     return out

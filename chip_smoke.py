@@ -70,8 +70,8 @@ Phases (each prints its own lines; any failure exits nonzero):
   9. the seeding variants: -u 2, -u 3 and -g on the first 16384 reads of
      phase 4, -u 4 on the first 4096, as phases 6-8 (K1 must launch; the
      device SAM of the first 1024 reads, 256 for -u 4, equals the CPU's);
- 10. `fastmap` of the same 16384 reads on the card, whose text for the
-     first 512 reads must equal --device cpu's;
+ 10. `fastmap` of the same 16384 reads on the card (512 reads a call),
+     whose text for the first 512 reads must equal --device cpu's;
  11. the probe, `python -m bwamem_tpu_torch.tools.int16_probe` (its main,
      in this process, with K4's launch count reset around it): six PASS
      lines, its verdict, exit 0;
@@ -100,19 +100,22 @@ Phases (each prints its own lines; any failure exits nonzero):
      launches (reset just before its run, read just after): all four
      must launch in phases 4 and 5, S1, S2 and S4 in phases 6-8, 10, 12
      and 13 (mode "smem"; fastmap and the fused step run no re-seed
-     round, so no S3), none in phase 9 (-u 2/3/4 and -g seed on torch
-     ops);
+     round, so no S3); in phase 9 S1 and S4 on -g (its backward walk
+     stays on torch ops) and S4 alone on -u 2/3/4 (SEED_VARIANT);
  15. the seeding kernels against their plain versions (the port's torch
      functions, on the card): on the captured calls of phase 4's warm
      chunk, of phase 6's 1 kb chunk and of the fused step's 150 bp batch,
-     and of phase 4's warm chunk again on the index without occ2 and
-     forced wide: smem_seed_batch's final seeds equal the plain route's,
+     of phase 4's warm chunk again on the index without occ2 and forced
+     wide, of -g's last chunk (phase 9) and of a 512-read fastmap call
+     (phase 10): smem_seed_batch's final seeds equal the plain route's,
      and each call's kernel equals its plain version (S1 and S3 on their
      emit masks and emitted entries, S2 on the lanes the containment
      filter keeps, S4 bit for bit), timed (median of 5; plain median of
      3) with its bound (_seed_bound); then phase 4's warm chunk through
      the aligner (collect) on the kernels and on the plain route under
-     torch.profiler: wall, seed_device, CUDA kernels, device busy share.
+     torch.profiler, in a process of its own: wall, seed_device, CUDA
+     kernels, device busy share; the kernel route's profile must hold
+     S1-S4's kernels.
 Phases 12-15 print their seconds. Then one JSON line for the kernels
 (the seeding kernels with phase 4's launches, launches by phase, and
 phase 4's warm-chunk records), the card line, and the device JSON as
@@ -846,7 +849,8 @@ def check_seed_call(label: str, call, timed: bool = True) -> dict:
     """One captured seeding kernel call (capture_seed_calls) replayed:
     the kernel against its plain version on the same inputs, by the
     kernel's rule (_seed_compare), both timed (median of 5 for the kernel,
-    of 3 for the plain version; `timed` False skips it), with the bound
+    of 3 for the plain version, CUDA events around a wrapper call, so the
+    wrapper's host work included; `timed` False skips it), with the bound
     (_seed_bound). Prints one line; exits on a mismatch. Returns the
     record."""
     import torch
@@ -929,12 +933,19 @@ def warm_chunk(calls) -> list:
     return [c for c in calls[last:] if c[3] == calls[last][3]]
 
 
+# the device functions a warm chunk of phase 4 launches on S1-S4 (the
+# occ2 pair walk, the backward walk, the re-seed walks, the SA lookup)
+SEED_KERNEL_NAMES = ("seed_pairs_kernel", "seed_backward_kernel",
+                     "seed_reseed_kernel", "sa_lookup_kernel")
+
+
 def seed_profile(fm, idx, seqs, device: str = "cuda") -> dict:
     """One warm chunk of the SE aligner (MemAligner.collect_regs_batch on
     `seqs`, after one warm-up) on the seeding kernels and on the plain
     route, each under torch.profiler: wall, the seed_device span, CUDA
     kernels launched and the device's busy share (the summed kernel time
-    over the wall). Returns {route: record}."""
+    over the wall). On the card the kernel route's profile must hold
+    every kernel of SEED_KERNEL_NAMES. Returns {route: record}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,6 +972,12 @@ def seed_profile(fm, idx, seqs, device: str = "cuda") -> dict:
         ops = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         kern = [e for e in ops if not e.name.startswith(("Memcpy", "Memset"))]
+        missing = [k for k in SEED_KERNEL_NAMES if device == "cuda"
+                   and route == "kernels"
+                   and not any(k in e.name for e in kern)]
+        if missing:
+            raise RuntimeError(f"seed_profile: the profile of the kernel "
+                               f"route holds no {missing}")
         busy = sum(e.device_time_total for e in ops) / 1e6
         out[route] = dict(wall=wall, seed_device=seed_s, kernels=len(kern),
                           device_ops=len(ops), busy=busy / wall)
@@ -1544,32 +1561,41 @@ def long_read_phases(d: str, contigs, device: str = "cuda",
     return out
 
 
+# phase 9's seeding kernels: -g seeds its forward walk on S1 and every
+# variant looks up SA positions on S4; the rest stays on torch ops
+SEED_VARIANT = {"g": ("seed_forward", "sa_lookup"), "u2": ("sa_lookup",),
+                "u3": ("sa_lookup",), "u4": ("sa_lookup",)}
+
+
 def variant_phases(d: str, device: str = "cuda", sizes=VARIANT_READS,
                    heads=VARIANT_HEADS) -> dict:
     """Phase 9 on the world of phase 3: -u 2, -u 3 and -g on the first
     sizes[0] reads of reads.fq, -u 4 on the first sizes[1], each through
-    flag_phase (K1 must launch, no seeding kernel may: these modes seed on
-    torch ops; device SAM == CPU SAM on the head).
-    Returns each variant's launch counts and reads/s."""
+    flag_phase (K1 must launch; the seeding kernels of SEED_VARIANT must
+    launch on the card and no other; device SAM == CPU SAM on the head;
+    -g's seeding calls captured). Returns each variant's launch counts
+    and reads/s."""
     n, n4 = sizes
     _head(os.path.join(d, "reads.fq"), os.path.join(d, "var.fq"), n)
     _head(os.path.join(d, "reads.fq"), os.path.join(d, "var4.fq"), n4)
-    return {tag: flag_phase(d, tag, reads, head, flags, ("K1",), device,
-                            seed_need=(), seed_absent=SEED_ALL)
-            for tag, reads, head, flags in (
-                ("u2", "var.fq", heads[0], ["-u", "2"]),
-                ("u3", "var.fq", heads[0], ["-u", "3"]),
-                ("g", "var.fq", heads[0], ["-g"]),
-                ("u4", "var4.fq", heads[1], ["-u", "4"]))}
+    return {tag: flag_phase(
+        d, tag, reads, head, flags, ("K1",), device, capture=tag == "g",
+        seed_need=SEED_VARIANT[tag],
+        seed_absent=tuple(k for k in SEED_ALL if k not in SEED_VARIANT[tag]))
+        for tag, reads, head, flags in (
+            ("u2", "var.fq", heads[0], ["-u", "2"]),
+            ("u3", "var.fq", heads[0], ["-u", "3"]),
+            ("g", "var.fq", heads[0], ["-g"]),
+            ("u4", "var4.fq", heads[1], ["-u", "4"]))}
 
 
 def fastmap_phase(d: str, device: str = "cuda",
-                  n_head: int = FASTMAP_HEAD) -> float:
+                  n_head: int = FASTMAP_HEAD) -> tuple:
     """Phase 10: `fastmap` of var.fq (phase 9's reads) through the CLI
     entry point on `device` (the round-1 seeding kernels must launch on
-    the card), then of its first n_head reads with
+    the card; their calls captured), then of its first n_head reads with
     --device cpu, whose text must equal the device run's for those reads.
-    Returns reads/s."""
+    Returns (reads/s, the captured seeding calls)."""
     from contextlib import redirect_stdout
 
     from bwamem_tpu_torch.cli import main
@@ -1586,7 +1612,8 @@ def fastmap_phase(d: str, device: str = "cuda",
 
     _reset_seed_counts()
     t0 = time.perf_counter()
-    got = fastmap(device, os.path.join(d, "var.fq"), "main")
+    with capture_seed_calls() as calls:
+        got = fastmap(device, os.path.join(d, "var.fq"), "main")
     wall = time.perf_counter() - t0
     _seed_phase("10", device, SEED_R1)
     n_em = sum(b.count("\nEM\t") for b in got)
@@ -1606,7 +1633,7 @@ def fastmap_phase(d: str, device: str = "cuda",
                          f"\n{got[bad:bad + 1]}\n{want[bad:bad + 1]}")
     print(f"fastmap: first {len(want)} reads: {device} text == CPU text "
           f"(CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
-    return len(got) / wall
+    return len(got) / wall, calls
 
 
 def probe_phase(device: str = "cuda") -> int:
@@ -2017,19 +2044,21 @@ def hosts_phase(d: str, device: str = "cuda", sizes=(1024, 512),
     return {case: rates[case, device] for case in cases}
 
 
-def seeding_phase(d: str, seed4, long_calls, step_calls,
-                  device: str = "cuda", timed: bool = True,
+def seeding_phase(d: str, seed4, long_calls, step_calls, g_calls,
+                  fastmap_calls, device: str = "cuda", timed: bool = True,
                   chunk_reads: int = CHUNK_READS) -> dict:
     """Phase 15, the seeding kernels against their plain versions: on the
     captured calls of phase 4's warm chunk (seed4: all its seeding calls),
     of phase 6's 1 kb chunk and of the fused step's 150 bp batch, then on
     phase 4's warm chunk again with the index without occ2 and with it
-    forced wide (seed_kernel_phase: the final seeds against the plain
-    route, each call against its plain version); then phase 4's warm chunk
-    of the aligner (reads chunk_reads .. 2 chunk_reads - 1 of reads.fq) on
-    the kernels and on the plain route under torch.profiler
-    (seed_profile). Returns the records of
-    seed_kernel_phase and the profile (key "profile")."""
+    forced wide, on -g's last chunk (phase 9: S1 without round 3, S4) and
+    on a 512-read fastmap call (phase 10, its second)
+    (seed_kernel_phase: the final seeds against the plain route, each call
+    against its plain version); then phase 4's warm chunk of the aligner
+    (reads chunk_reads .. 2 chunk_reads - 1 of reads.fq) on the kernels
+    and on the plain route under torch.profiler, in a fresh process
+    (fresh_seed_profile). Returns
+    the records of seed_kernel_phase and the profile (key "profile")."""
     import dataclasses
 
     from bwamem_tpu_torch.index.device import DeviceFMIndex
@@ -2052,11 +2081,49 @@ def seeding_phase(d: str, seed4, long_calls, step_calls,
         ctx("phase 4 warm chunk, index without occ2", warm, full,
             DeviceFMIndex.from_host(idx, device, occ2=False), False),
         ctx("phase 4 warm chunk, index forced wide", warm, full,
-            dataclasses.replace(fm4, wide=True), False)]
+            dataclasses.replace(fm4, wide=True), False),
+        ctx("phase 9 -g chunk", warm_chunk(g_calls), SeedConfig(mode="mem")),
+        # a fastmap call seeds with three calls (S1, S2, S4): its second
+        ctx("phase 10 fastmap call", warm_chunk(fastmap_calls[:6]),
+            SeedConfig())]
     out = seed_kernel_phase(contexts, timed)
-    _, seqs = _batch(os.path.join(d, "reads.fq"), 2 * chunk_reads)
-    out["profile"] = seed_profile(fm4, idx, seqs[chunk_reads:], device)
+    out["profile"] = fresh_seed_profile(d, chunk_reads, device)
     return out
+
+
+def warm_chunk_profile(d: str, chunk_reads: int, device: str) -> dict:
+    """seed_profile of phase 4's warm chunk (reads chunk_reads .. 2
+    chunk_reads - 1 of reads.fq) on the index in d."""
+    from bwamem_tpu_torch.index.device import DeviceFMIndex
+    from bwamem_tpu_torch.index.format import FMIndex
+
+    idx = FMIndex.load(os.path.join(d, "idx.bmt"))
+    _, seqs = _batch(os.path.join(d, "reads.fq"), 2 * chunk_reads)
+    return seed_profile(DeviceFMIndex.from_host(idx, device), idx,
+                        seqs[chunk_reads:], device)
+
+
+def fresh_seed_profile(d: str, chunk_reads: int, device: str,
+                       timeout: int = 600) -> dict:
+    """warm_chunk_profile in a process of its own, its lines passed on:
+    late in this script torch.profiler has recorded none of the seeding
+    kernels (cause unknown), while a fresh process records them."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print("
+         "'PROFILE ' + json.dumps(chip_smoke.warm_chunk_profile("
+         "sys.argv[1], int(sys.argv[2]), sys.argv[3])))", d,
+         str(chunk_reads), device], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=timeout)
+    lines = res.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    if res.returncode != 0 or not lines[-1:] or not lines[-1].startswith(
+            "PROFILE "):
+        raise RuntimeError(f"seed profile exited {res.returncode}:\n"
+                           f"{res.stderr[-3000:]}")
+    return json.loads(lines[-1][len("PROFILE "):])
 
 
 def build_kernels():
@@ -2214,10 +2281,10 @@ def main() -> int:
                                      _largest(runs["vanilla"]["k3_calls"]))
 
         phase("9 seeding variants (-u 2, -u 3, -g, -u 4)")
-        variant_phases(d)
+        variants = variant_phases(d)
 
         phase("10 fastmap")
-        fastmap_phase(d)
+        _, fastmap_calls = fastmap_phase(d)
 
         phase("11 the 16-bit probe")
         probe_launches = probe_phase()
@@ -2228,7 +2295,8 @@ def main() -> int:
         phase("15 seeding kernels vs plain")
         t0 = time.perf_counter()
         seeding = seeding_phase(d, seed4, runs["long"]["seed_calls"],
-                                paths["step_150"]["seed_calls"])
+                                paths["step_150"]["seed_calls"],
+                                variants["g"]["seed_calls"], fastmap_calls)
         print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -1,10 +1,13 @@
 // The seeding kernels' walks compiled as plain C++ for the CPU tests
-// (tests/test_torch_seed_kernels.py): the per-thread functions of
-// bwamem_tpu_torch/csrc/seed_forward.cu, seed_backward.cu and
-// sa_lookup.cu (their CUDA parts sit behind __CUDACC__), driven by loops
-// that stand in for the launches: one call per read, lane or row, and for
-// seed_backward the warp's lockstep, lane by lane in groups of 32, on the
-// kernel's own lane, step and kill functions.
+// (tests/test_torch_seed_kernels.py): the functions of
+// bwamem_tpu_torch/csrc/seed_forward.cu, seed_backward.cu and sa_lookup.cu
+// (their CUDA parts sit behind __CUDACC__), driven by loops that stand in
+// for the launches. S1's walks run on the lane-group form of
+// csrc/fm_index.cuh: each row query is the sum of its G lanes' parts, as
+// the kernel's shuffles sum them, finished and turned into the step by the
+// kernel's own functions; S2's warps walk their 32 lanes in lockstep with
+// the kernel's kill (backward_warps); S3 and S4 run their one-thread
+// functions, a call per lane or row.
 // Build: g++ -std=c++17 -O2 -shared -fPIC -I<csrc>.
 #include <stdint.h>
 
@@ -15,6 +18,159 @@
 #include "seed_forward.cu"
 
 namespace {
+
+uint32_t g_masks[33];
+
+const uint32_t* masks() {
+  for (int t = 0; t <= 32; ++t) g_masks[t] = fmi::plane_mask(t);
+  return g_masks;
+}
+
+// An end's occ2 row query at BWT$ row i: the G lanes' parts summed, then
+// finished (the kernel's reduce).
+template <typename T>
+fmi::Occ2Sums<fmi::Acc<T>> occ2_group(const fmi::FMConst& c,
+                                      const int32_t* occ2, T i, int c1,
+                                      int c2, const uint32_t* mk) {
+  using U = fmi::Acc<T>;
+  constexpr int G = fmi::kPairLanes, NW = 16 / G;
+  int r;
+  const int32_t* row = fmi::occ2_row(c, occ2, i, r);
+  fmi::Occ2Sums<U> sum{0, 0, 0, 0};
+  for (int q = 0; q < G; ++q) {
+    uint32_t cw[NW], dw[NW];
+    fmi::load_words<NW>(row + q * NW, cw);
+    fmi::load_words<NW>(row + 16 + q * NW, dw);
+    sum = sum + fmi::occ2_lane_part<G, U>(cw, dw, q, r, c1, c2, mk);
+  }
+  return fmi::occ2_finish<T, U>(c, i, c1, c2, sum);
+}
+
+// An end's occ row query for `code` at BWT$ row i on a lane pair.
+template <typename T>
+fmi::OccSums<fmi::Acc<T>> occ_group(const fmi::FMConst& c,
+                                    const int32_t* occ, T i, int code) {
+  using U = fmi::Acc<T>;
+  int r;
+  const int32_t* row = fmi::occ_row(c, occ, i, r);
+  fmi::OccSums<U> sum{0, 0};
+  for (int q = 0; q < 2; ++q) {
+    uint32_t cw[2], bw[2];
+    fmi::load_words<2>(row + 2 * q, cw);
+    fmi::load_words<2>(row + 4 + 2 * q, bw);
+    sum = sum + fmi::occ_lane_part<U>(cw, bw, q, r, code);
+  }
+  return sum;
+}
+
+// One walk of read b (r3: the round-3 automaton) as a group of the launch
+// runs it: its trips (walk_trips), each trip's step from the two ends'
+// group queries, its columns, then emit 0 to the end of its row.
+template <typename T>
+void walk(const fmi::FMConst& c, const fmi::FMPtrs& p,
+          const seedfw::FwdArgs<T>& a, bool pairs, bool r3, int b,
+          const uint32_t* mk) {
+  using U = fmi::Acc<T>;
+  const int len = a.lens[b];
+  const int32_t* rd = a.reads + static_cast<int64_t>(b) * a.L;
+  const int width = r3 ? a.L : a.NP;
+  const int64_t o = static_cast<int64_t>(b) * width;
+  const int trips = seedfw::walk_trips(len, a.L, pairs);
+  seedfw::Walk<T> w{0, 0, 0, 0};
+  for (int t = 0; t < trips; ++t) {
+    if (pairs) {
+      const int i = 2 * t;
+      const int b1 = i < a.L ? rd[i] : 4, b2 = i + 1 < a.L ? rd[i + 1] : 4;
+      const bool v1 = i < len && b1 < 4, v2 = i + 1 < len && b2 < 4;
+      const int c1 = 3 - fmi::clamp_code(b1), c2 = 3 - fmi::clamp_code(b2);
+      const auto lo = occ2_group<T>(c, p.occ2, w.l, c1, c2, mk);
+      const auto hi = occ2_group<T>(c, p.occ2, static_cast<T>(w.l + w.s),
+                                       c1, c2, mk);
+      T k1, l1, s1, k2, l2, s2;
+      fmi::ext2_from<T, U>(c, w.k, w.l, w.s, b1, b2, lo, hi, k1, l1, s1, k2,
+                           l2, s2);
+      seedfw::Col<T> eA, eB;
+      if (r3)
+        seedfw::r3_pair_trip<T>(c, a.min_len3, a.max_intv3, i, b1, b2, v1,
+                                v2, k1, l1, s1, k2, l2, s2, w, eA, eB);
+      else
+        seedfw::r1_pair_trip<T>(c, a.min_seed_len, i, b1, b2, v1, v2, k1, l1,
+                                s1, k2, l2, s2, w, eA, eB);
+      if (i < width) seedfw::put_col(a, r3, o + i, eA);
+      if (i + 1 < width) seedfw::put_col(a, r3, o + i + 1, eB);
+    } else {
+      const int i = t, base = i < a.L ? rd[i] : 4;
+      const bool valid = i < len && base < 4;
+      const int cc = 3 - fmi::clamp_code(base);
+      const auto lo = occ_group<T>(c, p.occ, w.l, cc);
+      const auto hi = occ_group<T>(c, p.occ, static_cast<T>(w.l + w.s), cc);
+      T nk, nl, ns;
+      fmi::ext1_from<T, U>(c, w.k, w.l, w.s, base, lo, hi, nk, nl, ns);
+      seedfw::Col<T> e;
+      if (r3)
+        seedfw::r3_single_trip<T>(c, a.min_len3, a.max_intv3, i, base, valid,
+                                  nk, nl, ns, w, e);
+      else
+        seedfw::r1_single_trip<T>(c, a.min_seed_len, i, base, valid, nk, nl,
+                                  ns, w, e);
+      if (i < width) seedfw::put_col(a, r3, o + i, e);
+    }
+  }
+  for (int i = pairs ? 2 * trips : trips; i < width; ++i)
+    (r3 ? a.e3 : a.emit)[o + i] = 0;
+}
+
+template <typename T>
+void forward(const fmi::FMConst& c, const fmi::FMPtrs& p,
+             const seedfw::FwdArgs<T>& a, bool pairs) {
+  const uint32_t* mk = masks();
+  for (int b = 0; b < a.B; ++b) {
+    walk<T>(c, p, a, pairs, false, b, mk);
+    if (a.strategy) walk<T>(c, p, a, pairs, true, b, mk);
+  }
+}
+
+// Mismatches of the lane-group queries against the one-thread ones at
+// every BWT$ row of the index (every row offset r of every block), for
+// every code pair; -1 if some row offset was not reached. occ2: the occ2
+// pair query on its group against occ2_query; else the occ row query on a
+// lane pair against rank1.
+template <typename T>
+long long check_rows(const fmi::FMConst& c, const fmi::FMPtrs& p,
+                     int64_t n_rows, bool occ2) {
+  using U = fmi::Acc<T>;
+  const uint32_t* mk = masks();
+  long long bad = 0;
+  bool seen[128] = {};
+  const int period = occ2 ? 128 : 64;
+  for (int64_t i = 0; i < n_rows; ++i) {
+    const T ti = static_cast<T>(i);
+    int r;
+    if (occ2) {
+      fmi::occ2_row(c, p.occ2, ti, r);
+      for (int c1 = 0; c1 < 4; ++c1)
+        for (int c2 = 0; c2 < 4; ++c2) {
+          const auto g = occ2_group<T>(c, p.occ2, ti, c1, c2, mk);
+          const auto w = fmi::occ2_sums<T, U>(c, p.occ2, ti, c1, c2);
+          bad += g.rc != w.rc || g.rs != w.rs || g.pc != w.pc ||
+                 g.ps != w.ps;
+        }
+    } else {
+      const int32_t* row = fmi::occ_row(c, p.occ, ti, r);
+      uint32_t words[8];
+      fmi::load_words<8>(row, words);
+      for (int code = 0; code < 4; ++code) {
+        const auto g = occ_group<T>(c, p.occ, ti, code);
+        const auto w = fmi::occ_sums<T, U>(words, r, code);
+        bad += g.eq != w.eq || g.gt != w.gt;
+      }
+    }
+    seen[r] = true;
+  }
+  for (int r = 0; r < period; ++r)
+    if (!seen[r]) return -1;
+  return bad;
+}
 
 // The launch of seed_backward: each warp of 32 lanes in lockstep, a trip
 // of every live lane, then each lane's kill test against the next one's
@@ -78,12 +234,7 @@ int host_seed_forward(const fmi::FMPtrs* fm, const void* reads,
                          static_cast<uint8_t*>(emit),
                          static_cast<int32_t*>(x3), k3p, s3p,
                          static_cast<uint8_t*>(e3)};
-    for (int b = 0; b < B; ++b) {
-      if (pairs)
-        seedfw::walk_pairs<T>(c, fm->occ2, a, b);
-      else
-        seedfw::walk_single<T>(c, fm->occ, a, b);
-    }
+    forward<T>(c, *fm, a, pairs != 0);
     return 0;
   };
   if (wide)
@@ -160,6 +311,20 @@ int host_sa_lookup(const fmi::FMPtrs* fm, const void* rows, long long n,
           c, *fm, static_cast<const int32_t*>(rows)[i], sa_intv);
   }
   return 0;
+}
+
+// The lane-group row queries against the one-thread ones on every BWT$
+// row (n_rows of them): occ2 != 0, the occ2 pair query; else the occ row
+// query. Returns the mismatches, -1 if a row offset was never reached.
+long long host_check_rows(const fmi::FMPtrs* fm, long long n_rows, int wide,
+                          int occ2) {
+  fmi::FMConst c;
+  fmi::fill_const(c, *fm);
+  auto go = [&](auto t) -> long long {
+    using T = decltype(t);
+    return check_rows<T>(c, *fm, n_rows, occ2 != 0);
+  };
+  return wide ? go(int64_t{0}) : go(int32_t{0});
 }
 
 }  // extern "C"

@@ -31,9 +31,10 @@ smem_seed_batch (re-seed rounds on, max_occ subsampling) against its
 plain version by the kernel's rule, on reads with N bases and of length
 0, 1, 2 and 19, at 32, 160, 1024 and 4096 columns, with occ2 and
 without, narrow and forced wide, S1 with and without round 3, the
-round-2 lanes with floors above 1; the final seeds equal the plain
-route's and the CPU's, one launch a wrapper call; S4 on every BWT row;
-the wrappers' input checks. Every test needs
+round-2 lanes with floors above 1; S1 and S2 at 1, 31, 512 and 4096
+reads; the final seeds equal the plain route's and the CPU's, one
+launch a wrapper call; S4 on every BWT row; the wrappers' input checks.
+Every test needs
 an NVIDIA GPU (marker `cuda`) and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -663,6 +664,32 @@ def test_seed_kernels_match_plain(seed_index, form, L):
                      sd.SeedConfig())
     assert {k: sk.LAUNCHES[k] - before[k] for k in before} == dict(
         seed_forward=1, seed_backward=1, seed_reseed_forward=0, sa_lookup=1)
+
+
+@pytest.mark.parametrize("B", [1, 31, 512, 4096])
+@pytest.mark.parametrize("form", SEED_FORMS)
+def test_seed_walks_at_batch_sizes(seed_index, form, B):
+    """S1 (with round 3 and without it) and S2 (both rounds) against their
+    plain versions by their rules at B reads of 160 columns: one read, an
+    odd count (a walk group and a warp left part empty), 512 (a fastmap
+    call) and 4096 (a 1 kb chunk's reads)."""
+    from bwamem_tpu_torch.ops import seeding as sd
+    from chip_smoke import (check_seed_call, make_seed_reads,
+                            seed_route_check)
+
+    g, idx = seed_index
+    reads, lens = make_seed_reads(g, np.random.default_rng(B), B, 160)
+    fm = _seed_fm(idx, form)
+    reads_t = torch.from_numpy(reads).cuda()
+    lens_t = torch.from_numpy(lens).cuda()
+    calls = seed_route_check(f"{form} B={B}", fm, reads_t, lens_t,
+                             sd.SeedConfig(reseed=True))
+    r1 = ("seed_forward", (fm, reads_t, lens_t, 19), {})
+    walks = [c for c in calls if c[0] in ("seed_forward", "seed_backward")]
+    assert len(walks) == 3
+    for call in walks + [r1]:
+        assert check_seed_call(f"{form} B={B}", call,
+                               timed=False)["max_abs_err"] == 0
 
 
 @pytest.mark.parametrize("reseed", [False, True])

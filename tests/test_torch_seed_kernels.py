@@ -1,12 +1,21 @@
 """The seeding kernels (ops/kernels/seed_kernels.py, S1-S4) on the CPU.
 
+  * The lane-group row queries of csrc/fm_index.cuh (S1's walks), each
+    lane's part summed over its group as the kernel's shuffles sum it,
+    equal the one-thread queries on every BWT row of the index (every row
+    offset, every code), on an occ2 row and an occ row, with int32 and
+    int64 positions.
   * The early-kill argument that lets S2 (seed_backward) kill lanes only
     within a warp: on the repeat-rich genome of test_torch_seeding.py
     (60 kb, seed 21) with chip_smoke.make_seed_reads' reads,
     ops/seeding._backward_pass with every lane in its own group (no kill
-    at all) keeps the same seeds after _containment_filter as the default
-    grouping, in round 1 and round 2, with occ2, without it and forced
-    wide; and the kill does fire there.
+    at all), with the default grouping, and the kernel's host build (its
+    warps' lockstep and kill) keep the same seeds after
+    _containment_filter, in round 1 and round 2, with occ2, without it
+    and forced wide; and the kill does fire there.
+  * Mode "mem" (-g) seeds through S1 and S4, mode "fwdmem" (-u 3) and
+    bowtie_seed_batch (-u 2/4) through S4, each on the kernels' host
+    builds equal to the plain route.
   * The wrappers route CPU tensors to the plain versions and launch
     nothing: every LAUNCHES counter stays 0.
   * smem_seed_batch, with the re-seed rounds on and off and with max_occ
@@ -98,11 +107,14 @@ def _round2(fm, reads, lens):
 
 @pytest.mark.parametrize("rnd", [1, 2])
 @pytest.mark.parametrize("form", FORMS)
-def test_early_kill_keeps_the_same_seeds(world, form, rnd):
+def test_early_kill_keeps_the_same_seeds(world, on_host, form, rnd):
     """_backward_pass with the kill off (each lane its own group) and on
-    (the default grouping) keep the same lanes after _containment_filter,
-    with the same (qb, k, s): a killed lane reached the state of a later
-    lane of its group, so its qb is at or above that lane's final qb."""
+    (the default grouping), and S2's host build (csrc/seed_backward.cu:
+    the lanes of a warp in lockstep, killed against the next lane of the
+    warp only), keep the same lanes after _containment_filter, with the
+    same (qb, k, s): a killed lane
+    reached the state of a later lane of its group, so its qb is at or
+    above that lane's final qb. The kill fires in both versions."""
     _, idx, reads, lens = world
     fm = _fm(idx, form)
     reads_t, lens_t = torch.from_numpy(reads), torch.from_numpy(lens)
@@ -113,12 +125,67 @@ def test_early_kill_keeps_the_same_seeds(world, form, rnd):
     killed = sd._backward_pass(fm, reads_t, *args, **kw)
     walked = sd._backward_pass(fm, reads_t, *args,
                                **dict(kw, group=torch.arange(P)))
-    keep_k = sd._containment_filter(killed[0], end, grp, MSL)
+    host = sk.seed_backward(fm, reads_t, *args, **kw)
+    assert (host[0] != walked[0]).any()  # the kernel's kill fired
     keep_w = sd._containment_filter(walked[0], end, grp, MSL)
-    assert torch.equal(keep_k, keep_w) and keep_k.any()
-    for a, b in zip(killed, walked):
-        assert torch.equal(a[keep_k], b[keep_w])
-    assert (killed[0] != walked[0]).any()  # the kill fired
+    assert keep_w.any()
+    for out in (killed, host):
+        keep = sd._containment_filter(out[0], end, grp, MSL)
+        assert torch.equal(keep, keep_w)
+        for a, b in zip(out, walked):
+            assert torch.equal(a[keep], b[keep_w])
+    assert (killed[0] != walked[0]).any()  # the plain version's kill fired
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("kind", ["occ2", "occ"])
+def test_lane_group_queries_match_one_thread(world, host_kernels, kind,
+                                             wide):
+    """S1's row queries in csrc/fm_index.cuh's lane-group form (occ2: its
+    lanes' occ2_lane_part summed, then occ2_finish; occ: a lane pair's
+    occ_lane_part summed), on the host as the kernel's shuffles sum them,
+    equal the one-thread occ2_query and rank1 sums on every BWT$ row of
+    the index, so at every row offset (0..127 of an occ2 row, 0..63 of an
+    occ row; the sentinel's blocks included) for every code c1 and
+    previous code c2."""
+    _, idx, _, _ = world
+    fm = _fm(idx, "occ2")
+    ptrs = sk._fm_ptrs(fm, fm.occ_blocks.device)
+    assert host_kernels.lib.host_check_rows(
+        ctypes.byref(ptrs), int(fm.seq_len) + 1, int(wide),
+        int(kind == "occ2")) == 0
+
+
+@pytest.mark.parametrize("mode", ["mem", "fwdmem", "bowtie"])
+def test_variant_modes_seed_on_the_kernels(world, on_host, mode):
+    """Mode "mem" (-g) takes S1 for its forward walk and S4 for its SA
+    lookup, mode "fwdmem" (-u 3) and bowtie_seed_batch (-u 2/4) S4; on
+    the kernels' host builds each gives the plain route's seeds, and each
+    call equals its plain version by its rule."""
+    _, idx, reads, lens = world
+    fm = _fm(idx, "occ2")
+    reads_t, lens_t = torch.from_numpy(reads), torch.from_numpy(lens)
+    if mode == "bowtie":
+        def seed():
+            return sd.bowtie_seed_batch(fm, reads_t, lens_t, 19, 10, True)
+    else:
+        def seed():
+            return sd.smem_seed_batch(fm, reads_t, lens_t,
+                                      sd.SeedConfig(mode=mode))
+    with chip_smoke.plain_seeding():
+        want = seed()
+    with chip_smoke.capture_seed_calls() as calls:
+        got = seed()
+    assert [c[0] for c in calls] == (["seed_forward", "sa_lookup"]
+                                     if mode == "mem" else ["sa_lookup"])
+    assert {k: v for k, v in sk.LAUNCHES.items() if v} == {
+        c[0]: 1 for c in calls}
+    assert len(want["rbeg"]) > 0
+    for k in FIELDS:
+        assert torch.equal(got[k].long(), want[k].long()), k
+    for call in calls:
+        assert chip_smoke.check_seed_call(mode, call, timed=False)[
+            "max_abs_err"] == 0
 
 
 def test_wrappers_route_cpu_to_plain(world):
@@ -220,6 +287,8 @@ def host_kernels(tmp_path_factory):
     lib.host_seed_backward.argtypes = [fmp, vp, ci, ci] + [vp] * 6 + [
         ci, ci] + [vp] * 3
     lib.host_sa_lookup.argtypes = [fmp, vp, cll, ci, ci, vp]
+    lib.host_check_rows.argtypes = [fmp, cll, ci, ci]
+    lib.host_check_rows.restype = cll
     return _HostLib(lib)
 
 

@@ -153,7 +153,12 @@ def test_variant_and_fastmap_phases_on_cpu(world, monkeypatch):
     assert set(runs) == {"u2", "u3", "g", "u4"}
     for r in runs.values():
         assert r["K1"] == r["K2"] == r["K3"] == 0 and r["reads_per_s"] > 0
-    assert chip_smoke.fastmap_phase(world, device="cpu", n_head=10) > 0
+    assert [c[0] for c in runs["g"]["seed_calls"]] == ["seed_forward",
+                                                      "sa_lookup"]
+    rate, calls = chip_smoke.fastmap_phase(world, device="cpu", n_head=10)
+    assert rate > 0
+    assert [c[0] for c in calls] == ["seed_forward", "seed_backward",
+                                     "sa_lookup"]
 
 
 def test_probe_phase_on_cpu(capsys):
@@ -187,12 +192,14 @@ def test_new_path_phases_on_cpu(world, long_runs, monkeypatch, capsys):
 
 def test_seeding_phase_on_cpu(world, long_runs, monkeypatch, capsys):
     """Phase 15 at a tiny size on the CPU: the seeding calls captured from
-    phase 4 (two chunks of 128 reads), phase 6 and the fused step replay
-    against the plain versions with a bound, smem_seed_batch equals the
-    plain route (also on the index without occ2 and forced wide), and the
-    profile runs both routes; CPU tensors launch no kernel."""
+    phase 4 (two chunks of 128 reads), phase 6, the fused step, a -g
+    chunk and the second of two fastmap calls replay against the plain
+    versions with a bound, smem_seed_batch equals the plain route (also
+    on the index without occ2 and forced wide), and the profile runs both
+    routes; CPU tensors launch no kernel."""
     from bwamem_tpu_torch.index.device import DeviceFMIndex
     from bwamem_tpu_torch.index.format import FMIndex
+    from bwamem_tpu_torch.ops import seeding as sd
 
     monkeypatch.chdir(world)  # the CLI appends to ./time.log
     seed4 = []
@@ -207,16 +214,27 @@ def test_seeding_phase_on_cpu(world, long_runs, monkeypatch, capsys):
     step = chip_smoke.fused_step_phase(
         {"cpu": DeviceFMIndex.from_host(idx, "cpu")}, "150 bp", names, seqs,
         truth, "K1", "K3", (8, 4), "cpu")
+    fm = DeviceFMIndex.from_host(idx, "cpu")
+    reads, lens = chip_smoke._reads_tensors(seqs[:12], "cpu")
+    with chip_smoke.capture_seed_calls() as g_calls:
+        sd.smem_seed_batch(fm, reads, lens, sd.SeedConfig(mode="mem"))
+    with chip_smoke.capture_seed_calls() as fastmap_calls:
+        for _ in range(2):
+            sd.smem_seed_batch(fm, reads, lens, sd.SeedConfig())
     out = chip_smoke.seeding_phase(world, seed4,
                                    long_runs["long"]["seed_calls"],
-                                   step["seed_calls"], device="cpu",
+                                   step["seed_calls"], g_calls,
+                                   fastmap_calls, device="cpu",
                                    timed=False, chunk_reads=128)
     prof = out.pop("profile")
     assert set(prof) == {"kernels", "plain"}
     assert {label for label, _, _ in out} == {
         "phase 4 warm chunk", "phase 6 1 kb chunk", "fused step 150 bp",
         "phase 4 warm chunk, index without occ2",
-        "phase 4 warm chunk, index forced wide"}
+        "phase 4 warm chunk, index forced wide", "phase 9 -g chunk",
+        "phase 10 fastmap call"}
+    assert {name for label, name, _ in out
+            if label == "phase 9 -g chunk"} == {"seed_forward", "sa_lookup"}
     for (label, name, _), rec in out.items():
         assert rec["max_abs_err"] == 0 and rec["ms"] is None, (label, name)
         assert rec["bound_ms"] > 0
