@@ -25,11 +25,11 @@
 // versions on a machine without a card.
 //
 // The lane-group form (the end of the file) splits one row query over the
-// lanes of a group, for seed_forward.cu's S1 walks: each lane reads a
-// slice of the row and computes its part of the query; the group's sum of
-// the parts (the kernel's __shfl_xor_sync reduce; the CPU harness's loop
-// over lanes) plus the finishing terms is the one-thread query. S2, S3, S4
-// and the CPU harness's one-thread walks keep the one-thread form.
+// lanes of a group, for seed_forward.cu's walks (S1, S3): each lane reads
+// a slice of the row and computes its part of the query; the group's sum
+// of the parts (the kernel's __shfl_xor_sync reduce; the CPU harness's
+// loop over lanes) plus the finishing terms is the one-thread query. S2,
+// S4 and the CPU harness's checks keep the one-thread form.
 #pragma once
 
 #include <stdint.h>

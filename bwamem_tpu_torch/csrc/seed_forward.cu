@@ -18,8 +18,8 @@
 //     reads the rest).
 //   * seed_reseed_forward: per lane the (kb, sb, eb, filled) planes
 //     (R, L + 2) of _reseed_forward: entry j holds the emission of
-//     relative offset j. `filled` must be zero on entry (the wrapper
-//     allocates it with zeros); kb, sb and eb are written where filled.
+//     relative offset j. filled is written everywhere, kb, sb and eb only
+//     where it is set.
 //
 // What bounds S1 on this card: each trip is a chain of dependent table
 // reads, one occ2 row of 128 B at each of the interval's two ends (one 32 B
@@ -47,8 +47,21 @@
 // one lane of the group until 2G trips are done; then the group writes
 // them as one contiguous run of the read's row. A warp runs its longest walk's trips to the first trip past
 // its read's end (after it a walk emits nothing) and zero-fills the rest
-// of each emit row. The round-2 lanes are one thread each, and a lane
-// stops at its death: after it the torch version only writes zeros.
+// of each emit row.
+//
+// S3 (seed_reseed_forward) has S1's chain, but few walks: a phase-4 chunk
+// holds some 10^4 re-seed lanes, and each dies once its interval falls
+// below its floor, so the latency of the chain bounds it. Its layout is
+// S1's: each re-seed lane is a walk on 2G lanes (G = fmi::kPairLanes on
+// occ2, a lane pair an occ row without), 32 / 2G walks a one-warp block;
+// the bases of 2G trips are prefetched a lane each; each trip's two plane
+// columns stay in one lane of the group and leave as a run of 2G trips. A
+// dead walk reads no row, and the warp stops at the trip where its last
+// walk dies. The warp's fill rows are one contiguous block, which it
+// zeroes with 8-byte stores before it walks (a group zeroing its own row
+// past its last trip, a byte a lane, writes 4 scattered bytes a row a
+// store: S3 at 1 kb took 0.216 ms that way on an H100, 0.081 with the
+// block stores; PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/kernels/build.py)
@@ -247,87 +260,120 @@ struct ReseedArgs {
   T* kb;                 // (R, L + 2)
   T* sb;
   int32_t* eb;
-  uint8_t* fill;         // zero on entry
+  uint8_t* fill;
 };
 
-// _reseed_forward of lane r: the walk from lx with the lane's floor, two
-// bases a trip on occ2 indexes (freeze-on-death within the pair does not
-// matter here: the lane stops at its death, after which the torch version
-// emits nothing).
+// A re-seed walk: its lane's read (its row in reads, its length), start
+// lx and floor, and the state of _reseed_forward's walk, the interval
+// (k, l, s) and whether it walks on.
 template <typename T>
-BM_HD void walk_reseed(const FMConst& c, const int32_t* occ,
-                       const int32_t* occ2, bool pairs,
-                       const ReseedArgs<T>& a, int r) {
-  const int64_t rid = a.lrid[r];
-  const int lx = a.lx[r];
-  const T fl = a.lfloor[r];
-  const int len = a.lens[rid];
-  const int64_t last = static_cast<int64_t>(a.B) * a.L - 1;
-  const int64_t row = rid * a.L;
-  auto at = [&](int64_t i) {
-    const int64_t x = row + i;
-    return a.reads[x < 0 ? 0 : (x > last ? last : x)];
-  };
-  auto fetch = [&](int i) { return i < len ? at(i) : 4; };
-  const int64_t o = static_cast<int64_t>(r) * (a.L + 2);
-  auto push = [&](int j, bool e, T kv, T sv, int ev) {
-    if (!e) return;
-    a.kb[o + j] = kv;
-    a.sb[o + j] = sv;
-    a.eb[o + j] = ev;
-    a.fill[o + j] = 1;
-  };
-  const int b0 = at(lx);
+struct ReseedWalk {
+  int64_t row;
+  int len, lx;
+  T fl;
   T k, l, s;
-  fmi::init1(c, b0, k, l, s);
-  bool alive = b0 < 4 && lx < len;
-  for (int j = 1; j <= a.L && alive; j += pairs ? 2 : 1) {
-    if (pairs) {
-      const int i1 = lx + j, i2 = i1 + 1;
-      const int b1 = fetch(i1), b2 = fetch(i2);
-      const bool v1 = i1 < len && b1 < 4;
-      const bool v2 = i2 < len && b2 < 4;
-      T k1, l1, s1, k2, l2, s2;
-      fmi::forward_ext2(c, occ2, k, l, s, b1, b2, k1, l1, s1, k2, l2, s2);
-      const T s1n = v1 ? s1 : static_cast<T>(0);
-      push(j, s1n != s && i1 >= a.min_seed_len, k, s, i1);
-      const bool alive1 = v1 && s1n >= fl;
-      const T s2n = (v2 && alive1) ? s2 : static_cast<T>(0);
-      push(j + 1, alive1 && s2n != s1n && i2 >= a.min_seed_len, k1, s1n,
-           i2);
-      const bool alive2 = alive1 && v2 && s2n >= fl;
-      if (alive2) {
-        k = k2;
-        l = l2;
-        s = s2n;
-      } else if (alive1) {
-        k = k1;
-        l = l1;
-        s = s1n;
-      }
-      alive = alive2;
-    } else {
-      const int i = lx + j;
-      const int b = fetch(i);
-      const bool vb = i < len && b < 4;
-      T kn, ln, sn;
-      fmi::forward_ext1(c, occ, k, l, s, b, kn, ln, sn);
-      const T snv = vb ? sn : static_cast<T>(0);
-      push(j, snv != s && i >= a.min_seed_len, k, s, i);
-      alive = vb && snv >= fl;
-      if (alive) {
-        k = kn;
-        l = ln;
-        s = snv;
-      }
-    }
+  bool alive;
+};
+
+// The code at position i of the walk's read as _reseed_forward reads it:
+// its flat index clamped into the reads (the start base b0), and past the
+// read's end 4 (a trip's bases, fetch).
+template <typename T>
+BM_HD int reseed_at(const ReseedArgs<T>& a, const ReseedWalk<T>& w,
+                    int64_t i) {
+  const int64_t last = static_cast<int64_t>(a.B) * a.L - 1;
+  const int64_t x = w.row + i;
+  return a.reads[x < 0 ? 0 : (x > last ? last : x)];
+}
+
+template <typename T>
+BM_HD int reseed_base(const ReseedArgs<T>& a, const ReseedWalk<T>& w,
+                      int64_t i) {
+  return i < w.len ? reseed_at(a, w, i) : 4;
+}
+
+// Lane r's walk at its start: the 1-base interval of b0 at lx, alive
+// where b0 is a base and lx lies inside the read.
+template <typename T>
+BM_HD ReseedWalk<T> reseed_start(const FMConst& c, const ReseedArgs<T>& a,
+                                 int r) {
+  ReseedWalk<T> w;
+  const int64_t rid = a.lrid[r];
+  w.row = rid * a.L;
+  w.len = a.lens[rid];
+  w.lx = a.lx[r];
+  w.fl = a.lfloor[r];
+  const int b0 = reseed_at(a, w, w.lx);
+  fmi::init1(c, b0, w.k, w.l, w.s);
+  w.alive = b0 < 4 && w.lx < w.len;
+  return w;
+}
+
+// Trips of a re-seed walk over reads of L columns: two bases a trip on
+// occ2 indexes (columns j = 2t + 1 and j + 1 of trip t), one without
+// (column t + 1); at most to column L + 1.
+BM_HD int reseed_trips(int L, bool pairs) { return pairs ? (L + 1) / 2 : L; }
+BM_HD int reseed_col(int t, bool pairs) { return pairs ? 2 * t + 1 : t + 1; }
+
+// One pair trip of _reseed_forward at positions i1 = lx + j and i1 + 1
+// (valid v1, v2), from the pair step of the walk's interval (k1.. after
+// the first base, k2.. after both): the emissions of columns j and j + 1
+// (end position, k and s before the base) and the state after the trip.
+// It freezes where the walk dies: at the first base on the state before
+// the trip, at the second on the one after the first base.
+template <typename T>
+BM_HD void reseed_pair_trip(int msl, int i1, bool v1, bool v2, T k1, T l1,
+                            T s1, T k2, T l2, T s2, ReseedWalk<T>& w,
+                            Col<T>& eA, Col<T>& eB) {
+  const T zero = 0;
+  const T s1n = v1 && w.alive ? s1 : zero;
+  eA = {w.alive && s1n != w.s && i1 >= msl, i1, w.k, w.s};
+  const bool alive1 = w.alive && v1 && s1n >= w.fl;
+  const T s2n = v2 && alive1 ? s2 : zero;
+  eB = {alive1 && s2n != s1n && i1 + 1 >= msl, i1 + 1, k1, s1n};
+  const bool alive2 = alive1 && v2 && s2n >= w.fl;
+  if (alive2) {
+    w.k = k2;
+    w.l = l2;
+    w.s = s2n;
+  } else if (alive1) {
+    w.k = k1;
+    w.l = l1;
+    w.s = s1n;
+  }
+  w.alive = alive2;
+}
+
+// One single-base trip of _reseed_forward at position i (valid), from
+// the forward step (nk, nl, ns) of the walk's interval by its base.
+template <typename T>
+BM_HD void reseed_single_trip(int msl, int i, bool valid, T nk, T nl, T ns,
+                              ReseedWalk<T>& w, Col<T>& e) {
+  const T snv = valid && w.alive ? ns : static_cast<T>(0);
+  e = {w.alive && snv != w.s && i >= msl, i, w.k, w.s};
+  const bool alive2 = w.alive && valid && snv >= w.fl;
+  if (alive2) {
+    w.k = nk;
+    w.l = nl;
+    w.s = snv;
+  }
+  w.alive = alive2;
+}
+
+// Plane entry o of the re-seed planes: filled, and kb, sb, eb where set.
+template <typename T>
+BM_HD void put_reseed(const ReseedArgs<T>& a, int64_t o, const Col<T>& e) {
+  a.fill[o] = e.e;
+  if (e.e) {
+    a.kb[o] = e.k;
+    a.sb[o] = e.s;
+    a.eb[o] = e.v;
   }
 }
 
 #ifdef __CUDACC__
-constexpr int kThreads = 128;  // S3's blocks
-// S1's blocks: one warp, so that even a launch of few walks (a fastmap
-// call of 512 reads: 128 warps) spreads over the SMs
+// S1's and S3's blocks: one warp, so that even a launch of few walks (a
+// fastmap call of 512 reads: 128 warps) spreads over the SMs
 constexpr int kWalkThreads = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -492,14 +538,110 @@ __global__ void __launch_bounds__(kWalkThreads)
       (ww.r3 ? a.e3 : a.emit)[ww.o + i] = 0;
 }
 
+// The re-seed walks (_reseed_forward's trips): per walk 2G lanes, each
+// end's row query on G of them (an occ2 row: G = fmi::kPairLanes; an occ
+// row: a lane pair), as S1's walks; a dead walk's lanes read no row.
 template <typename T, bool kPairs>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWalkThreads)
     seed_reseed_kernel(fmi::FMPtrs p, ReseedArgs<T> a) {
+  constexpr int G = kPairs ? fmi::kPairLanes : 2, W = 2 * G, NW = 16 / G;
+  using U = fmi::Acc<T>;
   __shared__ FMConst c;
+  __shared__ uint32_t masks[33];
+  if (kPairs)
+    for (int t = threadIdx.x; t <= 32; t += kWalkThreads)
+      masks[t] = fmi::plane_mask(t);
   fmi::load_const(c, p);
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= a.R) return;
-  walk_reseed<T>(c, p.occ, p.occ2, kPairs, a, r);
+  const int lane = threadIdx.x & 31, q = lane % W;
+  const int end = q / G, ql = q % G;
+  const int r = blockIdx.x * (32 / W) + lane / W;
+  const bool in = r < a.R;
+  {
+    // the warp's rows of the fill plane, one contiguous block, zeroed
+    // with 8-byte stores (it starts r0 (L + 2) bytes, a multiple of 8,
+    // into the plane the wrapper allocated)
+    const int r0 = blockIdx.x * (32 / W);
+    const int nr = a.R - r0 < 32 / W ? a.R - r0 : 32 / W;
+    uint8_t* blk = a.fill + static_cast<int64_t>(r0) * (a.L + 2);
+    const int64_t nbytes = static_cast<int64_t>(nr) * (a.L + 2);
+    for (int64_t x = lane; x < nbytes / 8; x += 32)
+      reinterpret_cast<uint2*>(blk)[x] = make_uint2(0u, 0u);
+    for (int64_t x = nbytes / 8 * 8 + lane; x < nbytes; x += 32) blk[x] = 0;
+    __syncwarp();
+  }
+  ReseedWalk<T> w{};
+  if (in) w = reseed_start<T>(c, a, r);
+  const int64_t o = static_cast<int64_t>(in ? r : 0) * (a.L + 2);
+  const int tmax = reseed_trips(a.L, kPairs);
+  int t = 0;
+  bool any = __any_sync(kFull, w.alive);
+  Col<T> keepA{}, keepB{};
+  while (any && t < tmax) {
+    const int t0 = t;
+    // the bases of the group's next W trips, a trip a lane
+    const int ip = w.lx + reseed_col(t0 + q, kPairs);
+    const int bp1 = in ? reseed_base(a, w, ip) : 4;
+    const int bp2 = kPairs && in ? reseed_base(a, w, ip + 1) : 4;
+    int u = 0;
+    for (; u < W && t < tmax && any; ++u, ++t) {
+      const int i = w.lx + reseed_col(t, kPairs);
+      const int b1 = __shfl_sync(kFull, bp1, u, W);
+      const T x = end ? static_cast<T>(w.l + w.s) : w.l;
+      int rr;
+      if constexpr (kPairs) {
+        const int b2 = __shfl_sync(kFull, bp2, u, W);
+        const int c1 = 3 - fmi::clamp_code(b1), c2 = 3 - fmi::clamp_code(b2);
+        const int32_t* row = fmi::occ2_row(c, p.occ2, x, rr);
+        uint32_t cw[NW] = {}, dw[NW] = {};
+        if (w.alive) {
+          fmi::load_slice<NW>(row + ql * NW, cw);
+          if (8 * NW * ql < rr) fmi::load_slice<NW>(row + 16 + ql * NW, dw);
+        }
+        fmi::Occ2Sums<U> part =
+            fmi::occ2_lane_part<G, U>(cw, dw, ql, rr, c1, c2, masks);
+#pragma unroll
+        for (int m = G / 2; m > 0; m >>= 1) part = part + shfl_xor(part, m);
+        part = fmi::occ2_finish<T, U>(c, x, c1, c2, part);
+        const fmi::Occ2Sums<U> other = shfl_xor(part, G);
+        T k1, l1, s1, k2, l2, s2;
+        fmi::ext2_from<T, U>(c, w.k, w.l, w.s, b1, b2, end ? other : part,
+                             end ? part : other, k1, l1, s1, k2, l2, s2);
+        Col<T> eA, eB;
+        reseed_pair_trip<T>(a.min_seed_len, i, i < w.len && b1 < 4,
+                            i + 1 < w.len && b2 < 4, k1, l1, s1, k2, l2, s2,
+                            w, eA, eB);
+        if (q == u) {
+          keepA = eA;
+          keepB = eB;
+        }
+      } else {
+        const int32_t* row = fmi::occ_row(c, p.occ, x, rr);
+        uint32_t cw[2] = {}, bw[2] = {};
+        if (w.alive) {
+          fmi::load_slice<2>(row + 2 * ql, cw);
+          if (32 * ql < rr) fmi::load_slice<2>(row + 4 + 2 * ql, bw);
+        }
+        fmi::OccSums<U> part = fmi::occ_lane_part<U>(
+            cw, bw, ql, rr, 3 - fmi::clamp_code(b1));
+        part = part + shfl_xor(part, 1);
+        const fmi::OccSums<U> other = shfl_xor(part, 2);
+        T nk, nl, ns;
+        fmi::ext1_from<T, U>(c, w.k, w.l, w.s, b1, end ? other : part,
+                             end ? part : other, nk, nl, ns);
+        Col<T> e;
+        reseed_single_trip<T>(a.min_seed_len, i, i < w.len && b1 < 4, nk, nl,
+                              ns, w, e);
+        if (q == u) keepA = e;
+      }
+      any = __any_sync(kFull, w.alive);
+    }
+    // the group's u trips as one run of the lane's row: lane q's columns
+    if (in && q < u) {
+      const int j = reseed_col(t0 + q, kPairs);
+      put_reseed(a, o + j, keepA);
+      if (kPairs) put_reseed(a, o + j + 1, keepB);
+    }
+  }
 }
 
 template <typename T>
@@ -520,11 +662,13 @@ int launch_forward(const fmi::FMPtrs& p, const FwdArgs<T>& a, bool pairs,
 template <typename T>
 int launch_reseed(const fmi::FMPtrs& p, const ReseedArgs<T>& a, bool pairs,
                   cudaStream_t st) {
-  const int grid = (a.R + kThreads - 1) / kThreads;
+  // walks a warp: 32 / 2G on occ2, 8 without
+  const int per = pairs ? 16 / fmi::kPairLanes : 8;
+  const int grid = (a.R + per - 1) / per;
   if (pairs)
-    seed_reseed_kernel<T, true><<<grid, kThreads, 0, st>>>(p, a);
+    seed_reseed_kernel<T, true><<<grid, kWalkThreads, 0, st>>>(p, a);
   else
-    seed_reseed_kernel<T, false><<<grid, kThreads, 0, st>>>(p, a);
+    seed_reseed_kernel<T, false><<<grid, kWalkThreads, 0, st>>>(p, a);
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -566,8 +710,8 @@ int bm_seed_forward(const fmi::FMPtrs* fm, const void* reads,
               static_cast<int32_t*>(k3), static_cast<int32_t*>(s3));
 }
 
-// Round-2 re-seed walks of R lanes into (R, L + 2) planes; `fill` must be
-// zero on entry. Returns a cudaError_t code.
+// Round-2 re-seed walks of R lanes into (R, L + 2) planes (fill written
+// everywhere; kb, sb, eb where it is set). Returns a cudaError_t code.
 int bm_seed_reseed_forward(const fmi::FMPtrs* fm, const void* reads,
                            const void* lens, int B, int L, const void* lrid,
                            const void* lx, const void* lfloor, int R,

@@ -6,13 +6,14 @@ ops/seeding.smem_seed_batch): the wrappers and their plain versions.
   S2 seed_backward        csrc/seed_backward.cu  each candidate lane
                           extended to the left (rounds 1 and 2)
   S3 seed_reseed_forward  csrc/seed_forward.cu   round-2 re-seed walks
-  S4 sa_lookup            csrc/sa_lookup.cu      the text position of BWT
-                          rows
+  S4 sa_lookup            csrc/sa_lookup.cu      each SMEM's occurrences
+                          and their text positions (two kernels a call)
 
 They replace the XLA loops of bwamem_tpu/ops/seeding.py smem_seed_batch
 (_forward_pass2, _forward_pass, _seed_strategy_pass, _backward_pass,
-_reseed_forward) and bwamem_tpu/ops/fm.py sa_lookup_batch; no Pallas
-kernel stands behind them. The plain versions are the port's torch
+_reseed_forward, and _expand_occurrences' row arithmetic) and
+bwamem_tpu/ops/fm.py sa_lookup_batch; no Pallas kernel stands behind
+them. The plain versions are the port's torch
 functions in ops/seeding.py and ops/fm.py. Each source is compiled with
 nvcc for sm_90a into the package's `_build/` directory on first use
 (ops/kernels/build.py) and called through a plain C entry point with
@@ -20,15 +21,17 @@ ctypes; the four share csrc/fm_index.cuh.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other. The
-kernels equal the plain versions on every entry the seeding reads: S4 on
-every row; S1 and S3 on their emit (filled) masks and the values of every
-emitted entry (the rest of those planes is left unwritten); S2 on every
+kernels equal the plain versions on every entry the seeding reads: S4 in
+every field of every occurrence, in order; S1 and S3 on their emit
+(filled) masks and the values of every emitted entry (the rest of those
+planes is left unwritten); S2 on every
 lane that ops/seeding._containment_filter keeps, so on the final seeds
 (its early kill runs within a warp only, so the raw (qb, k, s) of a lane
 that either version killed may differ).
 
-S1 walks each read on a group of lanes (csrc/fm_index.cuh's lane-group
-form): two lanes a row query, each end of the interval on a lane pair.
+S1 walks each read, and S3 each re-seed lane, on a group of lanes
+(csrc/fm_index.cuh's lane-group form): two lanes a row query, each end of
+the interval on a lane pair.
 """
 from __future__ import annotations
 
@@ -102,7 +105,13 @@ def _load(name: str):
                 lib.bm_seed_backward.restype = ci
                 err = lib.bm_seed_backward_error_string
             else:
-                lib.bm_sa_lookup.argtypes = [fmp, vp, cll, ci, ci, vp, vp]
+                lib.bm_sa_tiles.argtypes = [cll]
+                lib.bm_sa_tiles.restype = cll
+                lib.bm_sa_count.argtypes = [vp, vp, cll, ci, cll, vp, vp, vp]
+                lib.bm_sa_count.restype = ci
+                lib.bm_sa_lookup.argtypes = (
+                    [fmp] + [vp] * 5 + [cll, ci, ci, cll, vp, vp, cll]
+                    + [vp] * 6)
                 lib.bm_sa_lookup.restype = ci
                 err = lib.bm_sa_lookup_error_string
             err.argtypes = [ci]
@@ -307,7 +316,7 @@ def seed_reseed_forward(fm, reads, lens, lrid, lx, lfloor,
     kb = torch.empty((R, W), dtype=dt, device=dev)
     sb = torch.empty((R, W), dtype=dt, device=dev)
     eb = torch.empty((R, W), dtype=torch.int32, device=dev)
-    fill = torch.zeros((R, W), dtype=torch.bool, device=dev)
+    fill = torch.empty((R, W), dtype=torch.bool, device=dev)
     if R == 0:
         return kb, sb, eb, fill
     ptrs = _fm_ptrs(fm, dev)
@@ -322,25 +331,52 @@ def seed_reseed_forward(fm, reads, lens, lrid, lx, lfloor,
     return kb, sb, eb, fill
 
 
-def sa_lookup(fm, rows):
-    """The text position of each of the (P,) BWT rows:
-    ops/fm.sa_lookup_batch. Returns (P,) positions in the index's
-    position dtype."""
-    if not _on_card(rows, "sa_lookup"):
-        return fmops.sa_lookup_batch(fm, rows)
-    dev = rows.device
+def sa_lookup(fm, rid, qbeg, qend, k, s, keep, max_occ: int):
+    """The occurrences of (N,) SMEMs (read rid, query span [qbeg, qend),
+    k-side interval (k, s), keep mask) under max_occ:
+    ops/seeding._expand_occurrences. Returns its dict of (total,) fields
+    read_id, qbeg, qend (int32), rbeg and n_occ (the index's position
+    dtype), in (SMEM, SA rank) order. Two kernels a call; between them
+    the host reads the tiles' counts, whose sum sizes the output."""
+    if not _on_card(k, "sa_lookup"):
+        from .. import seeding
+
+        return seeding._expand_occurrences(fm, rid, qbeg, qend, k, s, keep,
+                                           max_occ)
+    if max_occ < 1:
+        raise ValueError(f"sa_lookup: max_occ {max_occ} is below 1")
+    dev = k.device
     dt = fmops.idx_dt(fm)
-    rows = rows.to(dt).contiguous()
-    n = rows.shape[0]
-    _check(rows, "rows", dt, (n,))
-    out = torch.empty(n, dtype=dt, device=dev)
-    if n == 0:
-        return out
-    ptrs = _fm_ptrs(fm, dev)
+    N = k.shape[0]
+    i32 = torch.int32
+    ins = dict(rid=rid.to(i32), qbeg=qbeg.to(i32), qend=qend.to(i32),
+               k=k.to(dt), s=s.to(dt), keep=keep.to(torch.bool))
+    for name, x in ins.items():
+        x = ins[name] = x.contiguous()
+        _check(x, name, x.dtype, (N,))
+        _same_device(dev, x)
+    if N == 0:
+        return dict(read_id=ins["rid"], qbeg=ins["qbeg"], qend=ins["qend"],
+                    rbeg=ins["k"], n_occ=ins["s"])
     lib = _load("sa_lookup")
-    rc = lib.bm_sa_lookup(ctypes.byref(ptrs), rows.data_ptr(), n,
-                          int(fm.wide), int(fm.sa_intv), out.data_ptr(),
-                          _stream(dev))
+    loc = torch.empty(N, dtype=torch.int64, device=dev)
+    tot = torch.empty(lib.bm_sa_tiles(N), dtype=torch.int64, device=dev)
+    rc = lib.bm_sa_count(ins["s"].data_ptr(), ins["keep"].data_ptr(), N,
+                         int(fm.wide), int(max_occ), loc.data_ptr(),
+                         tot.data_ptr(), _stream(dev))
+    _raise(lib, rc, "sa_lookup")
+    total = int(tot.cpu().sum())
+    out = dict(read_id=torch.empty(total, dtype=i32, device=dev),
+               qbeg=torch.empty(total, dtype=i32, device=dev),
+               qend=torch.empty(total, dtype=i32, device=dev),
+               rbeg=torch.empty(total, dtype=dt, device=dev),
+               n_occ=torch.empty(total, dtype=dt, device=dev))
+    ptrs = _fm_ptrs(fm, dev)
+    rc = lib.bm_sa_lookup(
+        ctypes.byref(ptrs), *(ins[n].data_ptr() for n in (
+            "rid", "qbeg", "qend", "k", "s")), N, int(fm.wide),
+        int(fm.sa_intv), int(max_occ), loc.data_ptr(), tot.data_ptr(),
+        total, *(x.data_ptr() for x in out.values()), _stream(dev))
     _raise(lib, rc, "sa_lookup")
     _count("sa_lookup")
     return out

@@ -507,8 +507,9 @@ def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
     """Per-SMEM occurrence list: subsample with step s // max_occ when
     s > max_occ (at most max_occ entries, the mem_chain rule,
     src/bwamem.c:426-431), then resolve each row's text position with an
-    SA walk (S4, kernels/seed_kernels.sa_lookup). Seeds come out in
-    (candidate, SA rank) order."""
+    SA walk (fm.sa_lookup_batch). Seeds come out in (candidate, SA rank)
+    order. The plain version of S4 (kernels/seed_kernels.sa_lookup), which
+    the seeding calls."""
     s_v = torch.where(keep, s, 0).to(torch.int64)
     step = torch.where(s_v > max_occ, s_v // max_occ, 1)
     count = torch.where(s_v > 0, (s_v + step - 1) // step, 0)
@@ -518,7 +519,7 @@ def _expand_occurrences(fm, rid, qbeg, qend, k, s, keep, max_occ):
     first = count.cumsum(0) - count
     off = torch.arange(cand.shape[0], device=s.device) - first[cand]
     rows = k[cand].to(torch.int64) + off * step[cand]
-    rbeg = seed_kernels.sa_lookup(fm, rows)
+    rbeg = fmops.sa_lookup_batch(fm, rows)
     return dict(read_id=rid[cand].to(torch.int32),
                 qbeg=qbeg[cand].to(torch.int32),
                 qend=qend[cand].to(torch.int32), rbeg=rbeg, n_occ=s[cand])
@@ -627,7 +628,8 @@ def smem_seed_batch(fm: DeviceFMIndex, reads, lens,
         perm = torch.argsort(key, stable=True)
         rid, qbeg, end, k, s = (a[perm] for a in (rid, qbeg, end, k, s))
         keep = torch.ones_like(rid, dtype=torch.bool)
-    out = _expand_occurrences(fm, rid, qbeg, end, k, s, keep, cfg.max_occ)
+    out = seed_kernels.sa_lookup(fm, rid, qbeg, end, k, s, keep,
+                                 cfg.max_occ)
     out["cand_pool"] = cand_pool
     out["c_need"] = c_need
     return out
@@ -756,5 +758,5 @@ def bowtie_seed_batch(fm: DeviceFMIndex, reads, lens, seed_len: int,
     prio = torch.where(alive, prio, -1).reshape(NL, C)
     best_p, best = prio.max(dim=1)
     pick = torch.arange(NL, device=dev) * C + best
-    return _expand_occurrences(fm, rid, x0, x0 + seed_len, k[pick], s[pick],
-                               best_p >= 0, max_occ)
+    return seed_kernels.sa_lookup(fm, rid, x0, x0 + seed_len, k[pick],
+                                  s[pick], best_p >= 0, max_occ)

@@ -110,12 +110,13 @@ Phases (each prints its own lines; any failure exits nonzero):
      (phase 10): smem_seed_batch's final seeds equal the plain route's,
      and each call's kernel equals its plain version (S1 and S3 on their
      emit masks and emitted entries, S2 on the lanes the containment
-     filter keeps, S4 bit for bit), timed (median of 5; plain median of
-     3) with its bound (_seed_bound); then phase 4's warm chunk through
-     the aligner (collect) on the kernels and on the plain route under
+     filter keeps, S4 in every field of every occurrence, in order),
+     timed (median of 5; plain median of 3) with its bound
+     (_seed_bound); then phase 4's warm chunk through the aligner
+     (collect) on the kernels and on the plain route under
      torch.profiler, in a process of its own: wall, seed_device, CUDA
      kernels, device busy share; the kernel route's profile must hold
-     S1-S4's kernels.
+     S1-S4's kernels (SEED_KERNEL_NAMES).
 Phases 12-15 print their seconds. Then one JSON line for the kernels
 (the seeding kernels with phase 4's launches, launches by phase, and
 phase 4's warm-chunk records), the card line, and the device JSON as
@@ -577,7 +578,8 @@ SEED_KERNELS = {
                       "bwamem_tpu_torch/csrc/seed_backward.cu"),
     "seed_reseed_forward": ("bwamem_tpu/ops/seeding.py:842 _reseed_forward",
                             "bwamem_tpu_torch/csrc/seed_forward.cu"),
-    "sa_lookup": ("bwamem_tpu/ops/fm.py:666 sa_lookup_batch",
+    "sa_lookup": ("bwamem_tpu/ops/fm.py:666 sa_lookup_batch (:965 "
+                  "_expand_occurrences of bwamem_tpu/ops/seeding.py)",
                   "bwamem_tpu_torch/csrc/sa_lookup.cu")}
 # the seeding kernels' bound: the integer instructions a table word costs
 # a query (xor, not, shift, and, popcount, add: one code's match count)
@@ -707,14 +709,13 @@ def plain_seeding():
 
 
 def _seed_plain() -> dict:
-    from bwamem_tpu_torch.ops import fm as fmops
     from bwamem_tpu_torch.ops import seeding
     from bwamem_tpu_torch.ops.kernels import seed_kernels
 
     return {"seed_forward": seed_kernels.seed_forward_plain,
             "seed_backward": seeding._backward_pass,
             "seed_reseed_forward": seeding._reseed_forward,
-            "sa_lookup": fmops.sa_lookup_batch}
+            "sa_lookup": seeding._expand_occurrences}
 
 
 def _emitted_err(got, want, mask_at: int) -> int:
@@ -771,9 +772,11 @@ def _seed_compare(name, got, want, args, kw) -> int:
     if name == "seed_backward":
         group = kw.get("group")
         return _kept_err(got, want, args[2] if group is None else group)
-    if got.shape != want.shape:
+    # sa_lookup: every field of every occurrence, in order
+    if any(got[f].shape != want[f].shape for f in SEED_KEYS):
         return -1
-    return int((got.long() - want.long()).abs().max()) if len(got) else 0
+    return max(int((got[f].long() - want[f].long()).abs().max())
+               if len(want[f]) else 0 for f in SEED_KEYS)
 
 
 def _table_bytes(touched: int, *tables) -> int:
@@ -792,8 +795,10 @@ def _seed_bound(name, args, kw, want) -> dict:
     queries, every query counted (a row at each end of the interval a
     step). The steps are this run's: a forward walk's trips to its read's
     end, a backward lane's bases prepended (plus the failed one), a
-    re-seed lane's trips to its last emission, a row's LF steps (its
-    position mod sa_intv, the index sampling by text position)."""
+    re-seed lane's trips to its last emission, an occurrence's LF steps
+    (its position mod sa_intv, the index sampling by text position; S4
+    reads every SMEM's keep byte and the fields of the SMEMs that own an
+    occurrence, and gives occurrences out)."""
     import torch
 
     fm = args[0]
@@ -834,13 +839,18 @@ def _seed_bound(name, args, kw, want) -> dict:
                   + _table_bytes(rows * row_bytes, *(
                       (walk_table, occ) if fm.has_occ2 else (occ,))))
     else:
-        n = want.shape[0]
-        steps = int((want.long() % fm.sa_intv).sum())
+        s, keep = args[5], args[6]
+        n = want["rbeg"].shape[0]
+        steps = int((want["rbeg"].long() % fm.sa_intv).sum())
         rows, row_bytes = n + 2 * steps, 32
-        # the rows in and the positions out; the sampled value each row
-        # ends on, and the occ and SSA-bitmap rows of its steps
+        # the SMEMs in: every keep byte, and (rid, qbeg, qend, k, s) only
+        # of those with an occurrence (a kept s above 0); the occurrences
+        # out (read_id, qbeg, qend, rbeg, n_occ); the sampled value each
+        # row ends on, and the occ and SSA-bitmap rows of its steps
+        owners = int(((s.long() > 0) & keep.bool()).sum())
         vals = (fm.ssa_vals, fm.ssa_vals_hi) if fm.wide else (fm.ssa_vals,)
-        nbytes = (n * 2 * dsz + _table_bytes(n * (4 + fm.wide), *vals)
+        nbytes = (keep.numel() + (owners + n) * (3 * 4 + 2 * dsz)
+                  + _table_bytes(n * (4 + fm.wide), *vals)
                   + _table_bytes(rows * row_bytes, fm.occ_blocks))
     return _bound(nbytes, rows * (row_bytes // 4) * OPS_PER_WORD)
 
@@ -934,9 +944,11 @@ def warm_chunk(calls) -> list:
 
 
 # the device functions a warm chunk of phase 4 launches on S1-S4 (the
-# occ2 pair walk, the backward walk, the re-seed walks, the SA lookup)
+# occ2 pair walk, the backward walk, the re-seed walks, the SA lookup's
+# count and scan, and its lookup)
 SEED_KERNEL_NAMES = ("seed_pairs_kernel", "seed_backward_kernel",
-                     "seed_reseed_kernel", "sa_lookup_kernel")
+                     "seed_reseed_kernel", "sa_count_kernel",
+                     "sa_lookup_kernel")
 
 
 def seed_profile(fm, idx, seqs, device: str = "cuda") -> dict:
@@ -2057,8 +2069,8 @@ def seeding_phase(d: str, seed4, long_calls, step_calls, g_calls,
     against its plain version); then phase 4's warm chunk of the aligner
     (reads chunk_reads .. 2 chunk_reads - 1 of reads.fq) on the kernels
     and on the plain route under torch.profiler, in a fresh process
-    (fresh_seed_profile). Returns
-    the records of seed_kernel_phase and the profile (key "profile")."""
+    (fresh_seed_profile). Returns the records of seed_kernel_phase and
+    the profile (key "profile")."""
     import dataclasses
 
     from bwamem_tpu_torch.index.device import DeviceFMIndex
@@ -2107,14 +2119,20 @@ def fresh_seed_profile(d: str, chunk_reads: int, device: str,
                        timeout: int = 600) -> dict:
     """warm_chunk_profile in a process of its own, its lines passed on:
     late in this script torch.profiler has recorded none of the seeding
-    kernels (cause unknown), while a fresh process records them."""
+    kernels (cause unknown), while a fresh process records them. The
+    process runs as many intra-op threads as this one (a process beside
+    busy ones must not start torch's full pool)."""
+    import torch
+
     repo = os.path.dirname(os.path.abspath(__file__))
+    threads = str(torch.get_num_threads())
     res = subprocess.run(
         [sys.executable, "-c", "import json, sys, chip_smoke; print("
          "'PROFILE ' + json.dumps(chip_smoke.warm_chunk_profile("
          "sys.argv[1], int(sys.argv[2]), sys.argv[3])))", d,
          str(chunk_reads), device], cwd=repo,
-        env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS=threads,
+                 MKL_NUM_THREADS=threads), capture_output=True,
         text=True, timeout=timeout)
     lines = res.stdout.strip().splitlines()
     for ln in lines[:-1]:

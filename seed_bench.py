@@ -23,7 +23,12 @@ Contexts: phase 4's warm chunk (16384 x 160, the re-seed rounds on: S1
 with round 3, S2 twice, S3, S4); 1 kb (4096 x 1024, the same rounds);
 the step (16384 x 160, round 1 alone: S1 without round 3); fastmap (its
 first 512 reads, round 1 alone); and phase 4's warm chunk on the index
-without occ2 and forced wide.
+without occ2 and forced wide. In each context one more record,
+"expand": the occurrence expansion as the tree's smem_seed_batch runs
+it, on the SMEMs of that call (a tree whose S4 takes BWT rows runs
+ops/seeding._expand_occurrences, its torch ops around S4; one whose S4
+takes the SMEMs runs S4 alone), timed both ways, with the device ops
+(kernels and copies) of one call.
 
 Prints the card's name and power limit, one line a call and variant, and
 writes every record as JSON to --out. Needs a CUDA card (--device cpu
@@ -73,6 +78,49 @@ def make_world(d: Path, genome_len: int, n150: int, n1k: int) -> None:
     r1k, l1k = pack([_CODE_LUT[np.frombuffer(r.seq.encode(), np.uint8)]
                      for r in long])
     np.savez(d / "reads.npz", r150=r150, l150=l150, r1k=r1k, l1k=l1k)
+
+
+def expansion(f, reads, lens, cfg):
+    """The occurrence expansion of smem_seed_batch(f, reads, lens, cfg) as
+    this process's tree runs it: (the function, its arguments from one
+    call). A tree whose seed_kernels.sa_lookup takes BWT rows expands in
+    ops/seeding._expand_occurrences; one whose S4 takes the SMEMs in
+    seed_kernels.sa_lookup."""
+    import inspect
+
+    from bwamem_tpu_torch.ops import seeding
+    from bwamem_tpu_torch.ops.kernels import seed_kernels
+
+    rows = len(inspect.signature(seed_kernels.sa_lookup).parameters) == 2
+    mod, name = ((seeding, "_expand_occurrences") if rows
+                 else (seed_kernels, "sa_lookup"))
+    fn, got = getattr(mod, name), []
+
+    def spy(*a):
+        got.append(a)
+        return fn(*a)
+
+    setattr(mod, name, spy)
+    try:
+        seeding.smem_seed_batch(f, reads, lens, cfg)
+    finally:
+        setattr(mod, name, fn)
+    return fn, got[-1]
+
+
+def _device_ops(fn, inner=20) -> float:
+    """Device ops (kernels and copies) torch.profiler records a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / inner
 
 
 def worker(world: Path, device: str, reps: int) -> list:
@@ -131,6 +179,16 @@ def worker(world: Path, device: str, reps: int) -> list:
                             bound_by=rec["bound_by"]))
             print(f"  {label} {name} ({i}): {ms:.4f} ms, device {dev} ms",
                   flush=True)
+        fn, a = expansion(f, reads, lens, cfg)
+        ms = timer(lambda: fn(*a), reps=reps)
+        dev, ops = ((chip_smoke._device_ms(lambda: fn(*a)),
+                     _device_ops(lambda: fn(*a)))
+                    if device == "cuda" else (None, None))
+        out.append(dict(context=label, kernel="expand", call=0,
+                        shape=list(a[1].shape), ms=ms, device_ms=dev,
+                        device_ops=ops, bound_ms=0.0, bound_by="-"))
+        print(f"  {label} expand: {ms:.4f} ms, device {dev} ms, {ops} "
+              f"device ops a call", flush=True)
     return out
 
 

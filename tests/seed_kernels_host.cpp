@@ -5,9 +5,10 @@
 // for the launches. S1's walks run on the lane-group form of
 // csrc/fm_index.cuh: each row query is the sum of its G lanes' parts, as
 // the kernel's shuffles sum them, finished and turned into the step by the
-// kernel's own functions; S2's warps walk their 32 lanes in lockstep with
-// the kernel's kill (backward_warps); S3 and S4 run their one-thread
-// functions, a call per lane or row.
+// kernel's own functions, and so do S3's re-seed walks (reseed_walk);
+// S2's warps walk their 32 lanes in lockstep with the kernel's kill
+// (backward_warps); S4's two kernels run their functions a tile of SMEMs
+// and an occurrence at a time.
 // Build: g++ -std=c++17 -O2 -shared -fPIC -I<csrc>.
 #include <stdint.h>
 
@@ -118,6 +119,50 @@ void walk(const fmi::FMConst& c, const fmi::FMPtrs& p,
   }
   for (int i = pairs ? 2 * trips : trips; i < width; ++i)
     (r3 ? a.e3 : a.emit)[o + i] = 0;
+}
+
+// Re-seed lane r's walk as its group runs it: its fill row zeroed (the
+// warp's block), then its trips until it dies, each trip's step from the
+// two ends' group queries, and its columns.
+template <typename T>
+void reseed_walk(const fmi::FMConst& c, const fmi::FMPtrs& p,
+                 const seedfw::ReseedArgs<T>& a, bool pairs, int r,
+                 const uint32_t* mk) {
+  using U = fmi::Acc<T>;
+  seedfw::ReseedWalk<T> w = seedfw::reseed_start<T>(c, a, r);
+  const int64_t o = static_cast<int64_t>(r) * (a.L + 2);
+  for (int j = 0; j < a.L + 2; ++j) a.fill[o + j] = 0;
+  const int tmax = seedfw::reseed_trips(a.L, pairs);
+  for (int t = 0; t < tmax && w.alive; ++t) {
+    const int i = w.lx + seedfw::reseed_col(t, pairs);
+    const int b1 = seedfw::reseed_base(a, w, i);
+    const T hi_row = static_cast<T>(w.l + w.s);
+    if (pairs) {
+      const int b2 = seedfw::reseed_base(a, w, i + 1);
+      const int c1 = 3 - fmi::clamp_code(b1), c2 = 3 - fmi::clamp_code(b2);
+      const auto lo = occ2_group<T>(c, p.occ2, w.l, c1, c2, mk);
+      const auto hi = occ2_group<T>(c, p.occ2, hi_row, c1, c2, mk);
+      T k1, l1, s1, k2, l2, s2;
+      fmi::ext2_from<T, U>(c, w.k, w.l, w.s, b1, b2, lo, hi, k1, l1, s1, k2,
+                           l2, s2);
+      seedfw::Col<T> eA, eB;
+      seedfw::reseed_pair_trip<T>(a.min_seed_len, i, i < w.len && b1 < 4,
+                                  i + 1 < w.len && b2 < 4, k1, l1, s1, k2,
+                                  l2, s2, w, eA, eB);
+      seedfw::put_reseed(a, o + i - w.lx, eA);
+      seedfw::put_reseed(a, o + i - w.lx + 1, eB);
+    } else {
+      const int cc = 3 - fmi::clamp_code(b1);
+      const auto lo = occ_group<T>(c, p.occ, w.l, cc);
+      const auto hi = occ_group<T>(c, p.occ, hi_row, cc);
+      T nk, nl, ns;
+      fmi::ext1_from<T, U>(c, w.k, w.l, w.s, b1, lo, hi, nk, nl, ns);
+      seedfw::Col<T> e;
+      seedfw::reseed_single_trip<T>(a.min_seed_len, i, i < w.len && b1 < 4,
+                                    nk, nl, ns, w, e);
+      seedfw::put_reseed(a, o + i - w.lx, e);
+    }
+  }
 }
 
 template <typename T>
@@ -261,8 +306,9 @@ int host_seed_reseed_forward(const fmi::FMPtrs* fm, const void* reads,
                             static_cast<const int32_t*>(lx), flp, B, L, R,
                             min_seed_len, kp, sp, static_cast<int32_t*>(eb),
                             static_cast<uint8_t*>(fill)};
+    const uint32_t* mk = masks();
     for (int r = 0; r < R; ++r)
-      seedfw::walk_reseed<T>(c, fm->occ, fm->occ2, pairs != 0, a, r);
+      reseed_walk<T>(c, *fm, a, pairs != 0, r, mk);
     return 0;
   };
   if (wide)
@@ -297,20 +343,70 @@ int host_seed_backward(const fmi::FMPtrs* fm, const void* reads, int B,
   return go(static_cast<const int32_t*>(k));
 }
 
-// Same arguments as bm_sa_lookup, without the stream.
-int host_sa_lookup(const fmi::FMPtrs* fm, const void* rows, long long n,
-                   int wide, int sa_intv, void* out) {
-  fmi::FMConst c;
-  fmi::fill_const(c, *fm);
-  for (long long i = 0; i < n; ++i) {
-    if (wide)
-      static_cast<int64_t*>(out)[i] = fmi::sa_lookup_one<int64_t>(
-          c, *fm, static_cast<const int64_t*>(rows)[i], sa_intv);
-    else
-      static_cast<int32_t*>(out)[i] = fmi::sa_lookup_one<int32_t>(
-          c, *fm, static_cast<const int32_t*>(rows)[i], sa_intv);
+// bm_sa_tiles with tiles of `tile` SMEMs (0: the card's, salk::tile_of).
+long long host_sa_tiles(long long n, long long tile) {
+  return salk::tiles_of(n, tile > 0 ? tile : salk::tile_of(n));
+}
+
+// Same arguments as bm_sa_count, the stream taken by `tile` (as in
+// host_sa_tiles): each tile's SMEMs in order, their counts (occ_count)
+// scanned within the tile.
+int host_sa_count(const void* s, const void* keep, long long n, int wide,
+                  long long max_occ, void* loc, void* tot, long long tile) {
+  if (tile <= 0) tile = salk::tile_of(n);
+  int64_t* lp = static_cast<int64_t*>(loc);
+  const uint8_t* kp = static_cast<const uint8_t*>(keep);
+  int64_t step;
+  for (long long b = 0; b * tile < n; ++b) {
+    int64_t run = 0;
+    for (long long i = b * tile; i < n && i < (b + 1) * tile; ++i) {
+      lp[i] = run;
+      const int64_t si = wide ? static_cast<const int64_t*>(s)[i]
+                              : static_cast<const int32_t*>(s)[i];
+      run += salk::occ_count(si, kp[i] != 0, max_occ, step);
+    }
+    static_cast<int64_t*>(tot)[b] = run;
   }
   return 0;
+}
+
+// Same arguments as bm_sa_lookup, the stream taken by `tile` (as in
+// host_sa_tiles): the tiles' first occurrences (the kernel's block scan),
+// then each occurrence.
+int host_sa_lookup(const fmi::FMPtrs* fm, const void* rid, const void* qbeg,
+                   const void* qend, const void* k, const void* s,
+                   long long n, int wide, int sa_intv, long long max_occ,
+                   const void* loc, const void* tot, long long total,
+                   void* read_id, void* qb_out, void* qe_out, void* rbeg,
+                   void* n_occ, long long tile) {
+  fmi::FMConst c;
+  fmi::fill_const(c, *fm);
+  if (tile <= 0) tile = salk::tile_of(n);
+  const int nb = static_cast<int>(salk::tiles_of(n, tile));
+  int64_t pre[salk::kMaxTiles];
+  int64_t run = 0;
+  for (int b = 0; b < nb; ++b) {
+    pre[b] = run;
+    run += static_cast<const int64_t*>(tot)[b];
+  }
+  auto go = [&](auto* kp) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(kp)>>;
+    salk::ExpandArgs<T> a{static_cast<const int32_t*>(rid),
+                          static_cast<const int32_t*>(qbeg),
+                          static_cast<const int32_t*>(qend), kp,
+                          static_cast<const T*>(s), n, max_occ, tile, nb,
+                          static_cast<const int64_t*>(loc),
+                          static_cast<const int64_t*>(tot), total,
+                          static_cast<int32_t*>(read_id),
+                          static_cast<int32_t*>(qb_out),
+                          static_cast<int32_t*>(qe_out),
+                          static_cast<T*>(rbeg), static_cast<T*>(n_occ)};
+    for (long long o = 0; o < total; ++o)
+      salk::expand_one<T>(c, *fm, a, pre, sa_intv, o);
+    return 0;
+  };
+  if (wide) return go(static_cast<const int64_t*>(k));
+  return go(static_cast<const int32_t*>(k));
 }
 
 // The lane-group row queries against the one-thread ones on every BWT$

@@ -716,18 +716,40 @@ def make_seed_reads_150(g):
 
 @pytest.mark.parametrize("form", ["occ2", "occ2_wide"])
 def test_sa_lookup_every_row(seed_index, form):
-    """S4 equals sa_lookup_batch bit for bit on every BWT row."""
+    """S4 equals sa_lookup_batch bit for bit on every BWT row (an SMEM of
+    size 1 at each: 118 tiles of SMEMs), and _expand_occurrences in every
+    field on SMEMs of size 0 to past max_occ, some not kept."""
     from bwamem_tpu_torch.ops import fm as fmops
+    from bwamem_tpu_torch.ops import seeding as sd
     from bwamem_tpu_torch.ops.kernels import seed_kernels as sk
 
     _, idx = seed_index
     fm = _seed_fm(idx, form)
-    rows = torch.arange(int(fm.seq_len) + 1, device="cuda")
+    dt = fmops.idx_dt(fm)
+    rows = torch.arange(int(fm.seq_len) + 1, device="cuda", dtype=dt)
+    one = torch.ones_like(rows, dtype=torch.int32)
     before = sk.LAUNCHES["sa_lookup"]
-    got = sk.sa_lookup(fm, rows)
+    got = sk.sa_lookup(fm, one, one, one + 1, rows, one.to(dt),
+                       one.bool(), 500)
     torch.cuda.synchronize()
     assert sk.LAUNCHES["sa_lookup"] == before + 1
-    assert torch.equal(got, fmops.sa_lookup_batch(fm, rows))
+    assert torch.equal(got["rbeg"], fmops.sa_lookup_batch(fm, rows))
+    rng = np.random.default_rng(9)
+    n = 5000
+    s = rng.choice([0, 1, 1, 1, 2, 3, 7, 40, 600, 1501], n)
+    k = rng.integers(0, int(fm.seq_len) + 2 - s)
+    qb = rng.integers(0, 100, n)
+    smems = [torch.from_numpy(a).cuda() for a in (
+        np.sort(rng.integers(0, 900, n)).astype(np.int32),
+        qb.astype(np.int32), (qb + 30).astype(np.int32))]
+    smems += [torch.from_numpy(k).to(dt).cuda(),
+              torch.from_numpy(s).to(dt).cuda(),
+              torch.from_numpy(rng.random(n) < 0.85).cuda()]
+    for max_occ in (500, 3):
+        got = sk.sa_lookup(fm, *smems, max_occ)
+        want = sd._expand_occurrences(fm, *smems, max_occ)
+        for key in ("read_id", "qbeg", "qend", "rbeg", "n_occ"):
+            assert torch.equal(got[key], want[key]), (max_occ, key)
 
 
 def test_seed_wrappers_check_inputs(seed_index):
@@ -749,5 +771,11 @@ def test_seed_wrappers_check_inputs(seed_index):
     before = dict(sk.LAUNCHES)
     planes, r3 = sk.seed_forward(fm, reads[:0], lens[:0], 19)
     assert planes[3].shape == (0, 162) and r3 is None
-    assert sk.sa_lookup(fm, z[:0].long()).shape == (0,)
+    out = sk.sa_lookup(fm, *(z[:0],) * 5, z[:0].bool(), 500)
+    assert all(v.shape == (0,) for v in out.values())
+    kb, sb, eb, fill = sk.seed_reseed_forward(fm, reads, lens, z[:0], z[:0],
+                                              z[:0], 19)
+    assert fill.shape == (0, 162)
     assert sk.LAUNCHES == before
+    with pytest.raises(ValueError):
+        sk.sa_lookup(fm, *(z,) * 5, z.bool(), 0)

@@ -27,7 +27,12 @@
     the wrappers' CUDA route on CPU tensors: every kernel equals its plain
     version by its rule, in every index form, with and without round 3,
     at 32, 160 and 1024 columns, and smem_seed_batch on them equals the
-    plain route with one launch of each kernel a call.
+    plain route with one launch of each kernel a call; S3's lane-group
+    walk on edge lanes (first-trip deaths, starts on an N, at or past the
+    read's end, odd L, no lane); S4's count/scan and lookup kernels
+    against _expand_occurrences on SMEMs of size 0, 1, 2 and past
+    max_occ, some not kept, in one tile and over many, and on every BWT
+    row.
 """
 import ctypes
 import dataclasses
@@ -206,12 +211,29 @@ def test_wrappers_route_cpu_to_plain(world):
     for a, b in zip(sk.seed_backward(fm, reads_t, *args, **kw),
                     sd._backward_pass(fm, reads_t, *args, **kw)):
         assert torch.equal(a, b)
-    rows = torch.arange(0, int(fm.seq_len) + 1, 97)
-    assert torch.equal(sk.sa_lookup(fm, rows),
-                       fmops.sa_lookup_batch(fm, rows))
+    smems = _smems(fm, 0)
+    got = sk.sa_lookup(fm, *smems, 3)
+    want = sd._expand_occurrences(fm, *smems, 3)
+    for k in FIELDS:
+        assert torch.equal(got[k], want[k]), k
     out = sd.smem_seed_batch(fm, reads_t, lens_t, sd.SeedConfig(reseed=True))
     assert len(out["rbeg"]) > 0
     assert all(v == 0 for v in sk.LAUNCHES.values()), sk.LAUNCHES
+
+
+def _smems(fm, seed, n=64):
+    """n SMEM-shaped rows (rid, qbeg, qend, k, s, keep) on fm's BWT: sizes
+    0, 1 and 2 up to past max_occ 500, about one in seven not kept."""
+    rng = np.random.default_rng(seed)
+    s = rng.choice([0, 1, 1, 1, 2, 3, 4, 7, 40, 600, 1501], n)
+    k = rng.integers(0, int(fm.seq_len) + 2 - s)
+    qbeg = rng.integers(0, 100, n)
+    dt = fmops.idx_dt(fm)
+    return (torch.from_numpy(np.sort(rng.integers(0, 20, n))).int(),
+            torch.from_numpy(qbeg).int(),
+            torch.from_numpy(qbeg + rng.integers(19, 60, n)).int(),
+            torch.from_numpy(k).to(dt), torch.from_numpy(s).to(dt),
+            torch.from_numpy(rng.random(n) < 0.85))
 
 
 @pytest.fixture(scope="module")
@@ -248,7 +270,10 @@ def test_seeds_match_jax(edge_world, reseed, max_occ):
 
 class _HostLib:
     """The kernels' C entry points, each forwarded to its host build
-    (tests/seed_kernels_host.cpp) without the stream argument."""
+    (tests/seed_kernels_host.cpp) without the stream argument; S4's with
+    sa_tile SMEMs a tile in its place (0: the card's tiling)."""
+
+    sa_tile = 0
 
     def __init__(self, lib):
         self.lib = lib
@@ -265,8 +290,14 @@ class _HostLib:
     def bm_seed_backward(self, *a):
         return self.lib.host_seed_backward(*a[:-1])
 
+    def bm_sa_tiles(self, n):
+        return self.lib.host_sa_tiles(n, self.sa_tile)
+
+    def bm_sa_count(self, *a):
+        return self.lib.host_sa_count(*a[:-1], self.sa_tile)
+
     def bm_sa_lookup(self, *a):
-        return self.lib.host_sa_lookup(*a[:-1])
+        return self.lib.host_sa_lookup(*a[:-1], self.sa_tile)
 
 
 @pytest.fixture(scope="module")
@@ -286,7 +317,12 @@ def host_kernels(tmp_path_factory):
         [fmp, vp, vp, ci, ci, vp, vp, vp] + [ci] * 4 + [vp] * 4)
     lib.host_seed_backward.argtypes = [fmp, vp, ci, ci] + [vp] * 6 + [
         ci, ci] + [vp] * 3
-    lib.host_sa_lookup.argtypes = [fmp, vp, cll, ci, ci, vp]
+    lib.host_sa_tiles.argtypes = [cll, cll]
+    lib.host_sa_tiles.restype = cll
+    lib.host_sa_count.argtypes = [vp, vp, cll, ci, cll, vp, vp, cll]
+    lib.host_sa_lookup.argtypes = ([fmp] + [vp] * 5
+                                   + [cll, ci, ci, cll, vp, vp, cll]
+                                   + [vp] * 5 + [cll])
     lib.host_check_rows.argtypes = [fmp, cll, ci, ci]
     lib.host_check_rows.restype = cll
     return _HostLib(lib)
@@ -337,15 +373,120 @@ def test_host_kernels_match_plain(world, on_host, form, L):
         "max_abs_err"] == 0
 
 
+@pytest.mark.parametrize("form", FORMS)
+def test_host_reseed_edge_lanes(world, on_host, form):
+    """S3's host build (its lane-group walk) equals _reseed_forward on the
+    fill mask and every filled entry at an odd L (161), on lanes that die
+    on their first trip (a floor above every interval), that start on an
+    N, at the read's last base, at its end or past it, or in reads of
+    length 0-2; and launches nothing for no lane."""
+    g, idx, _, _ = world
+    fm = _fm(idx, form)
+    reads, lens = chip_smoke.make_seed_reads(g, np.random.default_rng(5),
+                                             28, 161)
+    rng = np.random.default_rng(6)
+    R = 240
+    lrid = rng.integers(0, len(lens), R)
+    ln = lens[lrid]
+    lx = (rng.random(R) * np.maximum(ln, 1)).astype(np.int64)
+    lx[0::8] = np.maximum(ln[0::8] - 1, 0)
+    lx[1::8] = ln[1::8]
+    lx[2::8] = ln[2::8] + 3
+    n_at = np.argwhere(reads == 4)
+    n_at = n_at[n_at[:, 1] < lens[n_at[:, 0]]]  # N bases inside a read
+    pick = n_at[rng.integers(0, len(n_at), len(lrid[3::8]))]
+    lrid[3::8], lx[3::8] = pick[:, 0], pick[:, 1]
+    ln = lens[lrid]
+    floor = rng.choice([1, 1, 2, 3, 5, 1 << 20], R)
+    dt = fmops.idx_dt(fm)
+    args = (fm, torch.from_numpy(reads).int(), torch.from_numpy(lens),
+            torch.from_numpy(lrid).int(), torch.from_numpy(lx).int(),
+            torch.from_numpy(floor).to(dt), MSL)
+    got = sk.seed_reseed_forward(*args)
+    want = sd._reseed_forward(*args)
+    assert sk.LAUNCHES["seed_reseed_forward"] == 1
+    assert chip_smoke._emitted_err(got, want, 3) == 0
+    fill = want[3]
+    assert fill.any() and not fill[:, 0].any()
+    died = (floor == 1 << 20) & (ln > lx + 2)
+    assert fill[torch.from_numpy(died)].sum(1).max() <= 1  # first trip
+    none = sk.seed_reseed_forward(*args[:3], *(a[:0] for a in args[3:6]),
+                                  MSL)
+    assert none[3].shape == (0, 163)
+    assert sk.LAUNCHES["seed_reseed_forward"] == 1
+
+
 def test_host_sa_lookup_every_row(world, on_host):
-    """S4's host build equals sa_lookup_batch on every BWT row, narrow and
-    wide."""
+    """S4's host build equals sa_lookup_batch on every BWT row (an SMEM of
+    size 1 at each), narrow and wide."""
     _, idx, _, _ = world
     for form in ("occ2", "wide"):
         fm = _fm(idx, form)
         rows = torch.arange(int(fm.seq_len) + 1)
-        assert torch.equal(sk.sa_lookup(fm, rows),
-                           fmops.sa_lookup_batch(fm, rows))
+        n = len(rows)
+        one = torch.ones(n, dtype=torch.int32)
+        got = sk.sa_lookup(fm, one, one, one + 1, rows, one,
+                           torch.ones(n, dtype=torch.bool), 500)
+        assert torch.equal(got["rbeg"], fmops.sa_lookup_batch(fm, rows))
+        assert torch.equal(got["n_occ"].long(), one.long())
+
+
+@pytest.mark.parametrize("tile", [None, 8], ids=["one_tile", "tiles_of_8"])
+@pytest.mark.parametrize("max_occ", [500, 3])
+@pytest.mark.parametrize("form", ["occ2", "wide"])
+def test_host_sa_lookup_matches_plain(world, host_kernels, on_host,
+                                      monkeypatch, form, max_occ, tile):
+    """S4's host build (its count and scan kernel, then its lookup kernel)
+    equals _expand_occurrences in every field and in order, on SMEMs of
+    size 0, 1, 2 and past max_occ, some not kept; in one tile and, with
+    tiles of 8 SMEMs, over many (the owner search across tiles, tiles of
+    no occurrence)."""
+    _, idx, _, _ = world
+    fm = _fm(idx, form)
+    if tile:
+        monkeypatch.setattr(host_kernels, "sa_tile", tile)
+    assert host_kernels.bm_sa_tiles(300) == (38 if tile else 1)
+    smems = _smems(fm, 7, n=300)
+    want = sd._expand_occurrences(fm, *smems, max_occ)
+    got = sk.sa_lookup(fm, *smems, max_occ)
+    assert sk.LAUNCHES["sa_lookup"] == 1
+    assert len(want["rbeg"]) > 300
+    for k in FIELDS:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    empty = sk.sa_lookup(fm, *(x[:0] for x in smems), max_occ)
+    assert all(len(v) == 0 for v in empty.values())
+    none = sk.sa_lookup(fm, *smems[:5], torch.zeros_like(smems[5]), max_occ)
+    assert all(len(v) == 0 for v in none.values())
+
+
+@pytest.mark.parametrize("form", ["occ2", "wide"])
+def test_sa_lookup_bound_reads_owning_smems(world, monkeypatch, form):
+    """chip_smoke's bound of S4 charges every SMEM its keep byte, but the
+    other fields (rid, qbeg, qend, k, s) only to the SMEMs that own an
+    occurrence (kept, s above 0): an SMEM that is not kept or empty needs
+    no more than its keep byte."""
+    _, idx, _, _ = world
+    fm = _fm(idx, form)
+    smems = _smems(fm, 11, n=300)
+    args = (fm,) + smems + (3,)
+    want = sd._expand_occurrences(*args)
+    seen = {}
+    monkeypatch.setattr(chip_smoke, "_bound",
+                        lambda nbytes, ops: seen.update(nbytes=nbytes))
+    chip_smoke._seed_bound("sa_lookup", args, {}, want)
+    s, keep = smems[4].numpy().astype(np.int64), smems[5].numpy()
+    owners = int(((s > 0) & keep).sum())
+    assert 0 < owners < 300 - 20
+    n = len(want["rbeg"])
+    dsz = 8 if fm.wide else 4
+    steps = int((want["rbeg"].long() % fm.sa_intv).sum())
+    vals = fm.ssa_vals.numel() * 4 + (fm.ssa_vals_hi.numel() if fm.wide
+                                      else 0)
+    tables = (min(n * (4 + fm.wide), vals)
+              + min((n + 2 * steps) * 32,
+                    fm.occ_blocks.numel() * fm.occ_blocks.element_size()))
+    assert seen["nbytes"] == 300 + (owners + n) * (12 + 2 * dsz) + tables
 
 
 @pytest.mark.parametrize("name", ["seed_forward", "sa_lookup"])
@@ -370,11 +511,14 @@ def test_seed_bound_reads_each_table_byte_once(world, name):
         touched = 2 * trips * 128
     else:
         rows = torch.arange(int(fm.seq_len) + 1).repeat(20)
-        args = (fm, rows)
+        n = len(rows)
+        one = torch.ones(n, dtype=torch.int32)
+        args = (fm, one, one, one + 1, rows.int(), one,
+                torch.ones(n, dtype=torch.bool), 500)
         want = sk.sa_lookup(*args)
-        steps = int((want.long() % fm.sa_intv).sum())
-        n_words = (len(rows) + 2 * steps) * 8
-        io = len(rows) * 8
+        steps = int((want["rbeg"].long() % fm.sa_intv).sum())
+        n_words = (n + 2 * steps) * 8
+        io = n * (3 * 4 + 2 * 4 + 1) + n * (3 * 4 + 2 * 4)
         tables = (fm.ssa_vals.numel() * 4 + fm.occ_blocks.numel() * 4)
         touched = (len(rows) + 2 * steps) * 32
     assert touched > 4 * tables  # the walks read the tables many times
