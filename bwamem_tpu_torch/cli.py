@@ -152,6 +152,12 @@ def _add_align_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device for the device stages [cuda]; there "
                         "is no automatic fallback to the CPU")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   dest="trace_out",
+                   help="record spans (with chunk, parent and thread CPU "
+                        "time) and per-chunk counters, and write them at "
+                        "exit as Chrome trace-event JSON on torch.profiler's "
+                        "clock")
 
 
 def main(argv=None) -> int:
@@ -458,6 +464,18 @@ def _options(args):
 
 
 def cmd_align(args) -> int:
+    if args.trace_out is None:
+        return _align(args)
+    from .utils import timing
+
+    timing.enable()
+    try:
+        return _align(args)
+    finally:
+        timing.disable().write_chrome(args.trace_out)
+
+
+def _align(args) -> int:
     from .index.format import FMIndex
     from .io.fastx import read_fastx
     from .pipeline.aligner import MemAligner

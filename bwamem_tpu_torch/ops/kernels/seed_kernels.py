@@ -40,6 +40,7 @@ import threading
 
 import torch
 
+from ...utils import timing
 from .. import fm as fmops
 from . import build as _kbuild
 from .build import check as _check
@@ -366,6 +367,7 @@ def sa_lookup(fm, rid, qbeg, qend, k, s, keep, max_occ: int):
                          tot.data_ptr(), _stream(dev))
     _raise(lib, rc, "sa_lookup")
     total = int(tot.cpu().sum())
+    timing.count("host_syncs")
     out = dict(read_id=torch.empty(total, dtype=i32, device=dev),
                qbeg=torch.empty(total, dtype=i32, device=dev),
                qend=torch.empty(total, dtype=i32, device=dev),

@@ -53,6 +53,7 @@ from dataclasses import dataclass
 import torch
 
 from ..index.device import DeviceFMIndex
+from ..utils import timing
 from . import fm as fmops
 from .kernels import seed_kernels
 
@@ -92,6 +93,7 @@ class SeedConfig:
 def _compact(mask, *fields):
     """Order-preserving compaction of flat fields by mask."""
     idx = mask.reshape(-1).nonzero().squeeze(1)
+    timing.count("host_syncs")  # nonzero reads its count on the host
     return idx, tuple(f.reshape(-1)[idx] for f in fields)
 
 

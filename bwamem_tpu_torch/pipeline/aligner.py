@@ -46,12 +46,16 @@ from ..ops.extend import (ExtendParams, end_choice, extend_batch_auto,
 from ..ops import fm as fmops
 from ..ops.seeding import (SeedConfig, bowtie_seed_batch, pool_spills,
                            smem_seed_batch)
+from ..utils import timing
 from ..utils.shapes import bucket_count, bucket_len, bucket_read_len
 from .chain import Chain
 from .options import FILTER_COEF, MEM_F_NO_RESCUE, MemOptions, cal_max_gap
 from .regions import AlnReg, mem_mark_primary_se, mem_sort_dedup_patch
 
 _LONG_READ = 500  # reads this long turn the per-seed SW filter on
+# counter name -> the run total in MemAligner.stats it adds to
+_STATS = {"seeds": "n_seeds", "ext_jobs": "n_extensions",
+          "rescue_jobs": "rescue_jobs", "rescue_applied": "rescue_applied"}
 LEFT, RIGHT = 0, 1
 
 
@@ -232,6 +236,7 @@ def run_extension_jobs(fm_params: ExtendParams, mat, jobs: list[ExtJob],
         sc, qe, te = torch.stack(end_choice(
             out["score"], out["qle"], out["tle"], out["gscore"],
             out["gtle"], qlt, pen_clip)).cpu().numpy()
+        timing.count("host_syncs")
         for i, j in enumerate(sub):
             j.reg.part[j.side] = [int(sc[i]), int(qe[i]), int(te[i])]
 
@@ -344,6 +349,14 @@ class MemAligner:
         return (self.timings.span(label) if self.timings is not None
                 else nullcontext())
 
+    def _count(self, name: str, n: int) -> None:
+        """A chunk's counter event; the run total in `stats` grows by the
+        same `n`."""
+        key = _STATS.get(name)
+        if key is not None:
+            self.stats[key] = self.stats.get(key, 0) + n
+        timing.count(name, n)
+
     def seed_batch_arrays(self, seqs: list[np.ndarray]) -> dict:
         """Device seeding; returns flat seed arrays (qbeg/qend/rbeg/n_occ)
         + per-read bounds, plus the uploaded reads buffer.
@@ -417,6 +430,7 @@ class MemAligner:
                     pool_spills(c, n, pool_reads, cand,
                                 self.seed_cfg.seed_pool) for c, n in counts)
             host = {k: v.cpu().numpy() for k, v in out.items()}
+            timing.count("host_syncs", len(host))
         if spill and B > 1:
             import sys
 
@@ -430,7 +444,7 @@ class MemAligner:
             return dict(**{k: np.concatenate([lo[k], hi[k]])
                            for k in ("qbeg", "qend", "rbeg", "n_occ")},
                         bounds=bounds, reads_dev=(B, L, reads_t))
-        self.stats["n_seeds"] += len(host["rbeg"])
+        self._count("seeds", len(host["rbeg"]))
         bounds = np.searchsorted(host["read_id"], np.arange(B + 1))
         return dict(qbeg=host["qbeg"], qend=host["qend"], rbeg=host["rbeg"],
                     n_occ=host["n_occ"], bounds=bounds.astype(np.int64),
@@ -483,7 +497,7 @@ class MemAligner:
         R = out["regs"]
 
         self.stats["n_reads"] += B
-        self.stats["n_extensions"] += out["n_jobs"]
+        self._count("ext_jobs", out["n_jobs"])
         partL = np.zeros((nR, 3), np.int64)
         partR = np.zeros((nR, 3), np.int64)
         self._run_jobs_arrays(out, (partL, partR),
@@ -604,6 +618,9 @@ class MemAligner:
                 h064 + int(p.max_mat) * q64 - o_min, 0) // e_min + 2
         tlen = np.minimum(J["tlen"][:nJ].astype(np.int64),
                           reach).astype(np.int32)
+        if timing.recording():
+            # the DP matrix each job's inputs define (cells, the GCUPS unit)
+            timing.count("ext_cells", int(np.dot(q64, tlen.astype(np.int64))))
 
         # window widths from the READ LENGTH bucket + score params, as the
         # JAX twin does (the kernel's work follows each job's own lengths)
@@ -635,6 +652,7 @@ class MemAligner:
                     self.mesh, self.fms, reads_dev, *desc, self._mat,
                     self.ext_params, int(opt.pen_clip5), QMAX, TMAX)
             sc, qe, te = stacked.cpu().numpy()
+            timing.count("host_syncs")
         jreg = J["reg"][:nJ]
         jside = J["side"][:nJ]
         for side in (0, 1):
@@ -647,12 +665,10 @@ class MemAligner:
         """Device seeding + native chaining + ONE device extension + L/R
         merge + dedup/patch, before primary marking: a RegArrays. With -W
         or -v >= 4, the per-seed-object path: a list of AlnReg lists."""
-        with self._span("seed_total"):
-            seed_arr = self.seed_batch_arrays(seqs)
+        seed_arr = self.seed_batch_arrays(seqs)
         if self.opt.min_chain_weight > 0 or self.opt.verbose >= 4:
             return self._collect_objects(seqs, seed_arr)
-        with self._span("native_total"):
-            fast = self._collect_native(seqs, seed_arr)
+        fast = self._collect_native(seqs, seed_arr)
         if fast is not None:
             return fast
         return self._collect_objects(seqs, seed_arr)
@@ -700,7 +716,10 @@ class MemAligner:
             _dump_regs(per_read_regs, stage="pre-extension")
 
         self.stats["n_reads"] += len(seqs)
-        self.stats["n_extensions"] += len(jobs)
+        self._count("ext_jobs", len(jobs))
+        if timing.recording():
+            timing.count("ext_cells", sum(len(j.query) * len(j.target)
+                                          for j in jobs))
         with self._span("ext_device"):
             run_extension_jobs(self.ext_params, opt.mat, jobs, opt.pen_clip5,
                                device=self.device, mesh=self.mesh)
@@ -741,10 +760,13 @@ class MemAligner:
         pair_regs = [[per_read_regs[i << 1], per_read_regs[i << 1 | 1]]
                      for i in range(n_pairs)]
         if not (opt.flag & MEM_F_NO_RESCUE):
+            done: dict = {}
             with self._span("pe_rescue"):
                 mem_pe_rescue_batch(opt, idx, pes, pair_seqs, pair_regs,
                                     dev=self.fm, span=self._span,
-                                    stats=self.stats)
+                                    stats=done)
+            for name, n in done.items():
+                self._count(name, n)
         return pair_regs, pes
 
     def emit_sam_batch(self, names, seqs, quals, per_read_regs,

@@ -266,6 +266,7 @@ def _run_sw_jobs(opt: MemOptions, jobs: list[_SWJob],
     import torch
 
     from ..ops.swalign import SW_KEYS, sw_rescue_desc_stacked
+    from ..utils import timing
     from ..utils.shapes import bucket_len
 
     n_real = len(jobs)
@@ -287,6 +288,7 @@ def _run_sw_jobs(opt: MemOptions, jobs: list[_SWJob],
         dev, torch.from_numpy(Q).to(device), ql, desc_t[1], tl, minsc,
         opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, TMAX,
         rev_skip=opt.min_seed_len).cpu().numpy()
+    timing.count("host_syncs")
     out = dict(zip(SW_KEYS, stacked))
     return [{k: out[k][i] for k in out} for i in range(n_real)]
 

@@ -17,9 +17,18 @@ granularity:
   writer thread   -> ordered SAM write
 
 Order is preserved: chunks finalize strictly in input order.
+
+Each chunk gets a sequence number at the reader and carries it through
+both queues; its `read`, `collect`, `finalize` and `sam_write` spans, the
+spans the aligner opens inside `collect` and the counter events of its
+work carry it (utils/timing's chunk context), so a trace gives each
+chunk's queue waits. The threads are named `reader`, `collect_<i>` and
+`writer`. The last `read` span, the one that meets the end of the input,
+carries the next number, which no chunk has.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import sys
 import threading
@@ -27,6 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, TextIO
 
 from ..io.fastx import SeqRecord, chunk_records
+from ..utils import timing
 from ..utils.timing import Timings
 
 _STOP = object()
@@ -62,8 +72,16 @@ def run_pipeline(records: Iterator[SeqRecord], aligner, chunk_bases: int,
 
     def reader():
         try:
-            for batch in chunk_records(records, chunk_bases, paired=paired):
-                if not _put(in_q, batch):
+            batches = chunk_records(records, chunk_bases, paired=paired)
+            for seq in itertools.count():
+                with timing.chunk(seq), timings.span("read"):
+                    batch = next(batches, None)
+                    if batch is not None and timing.recording():
+                        timing.count("reads", len(batch))
+                        timing.count("bases", sum(len(r.seq) for r in batch))
+                if batch is None:
+                    break
+                if not _put(in_q, (seq, batch)):
                     return
         except BaseException as e:  # noqa: BLE001
             errors.append(e)
@@ -77,8 +95,9 @@ def run_pipeline(records: Iterator[SeqRecord], aligner, chunk_bases: int,
                 item = out_q.get()
                 if item is _STOP:
                     return
-                with timings.span("sam_write"):
-                    for line in item:
+                seq, lines = item
+                with timing.chunk(seq), timings.span("sam_write"):
+                    for line in lines:
                         out.write(line)
                         out.write("\n")
         except BaseException as e:  # noqa: BLE001
@@ -88,29 +107,31 @@ def run_pipeline(records: Iterator[SeqRecord], aligner, chunk_bases: int,
             while out_q.get() is not _STOP:
                 pass
 
-    def collect(batch):
+    def collect(seq, batch):
         names = [r.name for r in batch]
         seqs = [r.seq for r in batch]
         quals = [r.qual for r in batch]
         comments = [r.comment for r in batch]
-        with timings.span("collect"):
+        with timing.chunk(seq), timings.span("collect"):
             if paired:
                 regs, pes = aligner.collect_pairs_batch(seqs)
             else:
                 regs, pes = aligner.collect_regs_batch(seqs), None
         return names, seqs, quals, regs, pes, comments
 
-    def finalize(res, n_processed):
+    def finalize(seq, res, n_processed):
         names, seqs, quals, regs, pes, comments = res
-        with timings.span("finalize"):
+        with timing.chunk(seq), timings.span("finalize"):
             if paired:
-                return pool.emit_pe(names, seqs, quals, regs, pes,
-                                    n_processed, comments)
-            return pool.emit_se(names, seqs, quals, regs, n_processed,
-                                comments)
+                lines = pool.emit_pe(names, seqs, quals, regs, pes,
+                                     n_processed, comments)
+            else:
+                lines = pool.emit_se(names, seqs, quals, regs, n_processed,
+                                     comments)
+        return seq, lines
 
-    rt = threading.Thread(target=reader, daemon=True)
-    wt = threading.Thread(target=writer, daemon=True)
+    rt = threading.Thread(target=reader, name="reader", daemon=True)
+    wt = threading.Thread(target=writer, name="writer", daemon=True)
     rt.start()
     wt.start()
 
@@ -124,25 +145,27 @@ def run_pipeline(records: Iterator[SeqRecord], aligner, chunk_bases: int,
     try:
         from collections import deque
 
-        pending: deque = deque()  # (future, n_reads_at_start)
+        pending: deque = deque()  # (future, n_reads_at_start, chunk id)
         while not stop.is_set():
             try:
-                batch = in_q.get(timeout=0.2)
+                item = in_q.get(timeout=0.2)
             except queue.Empty:
                 continue
-            if batch is _STOP:
+            if item is _STOP:
                 break
-            pending.append((collector.submit(collect, batch), n_processed))
+            seq, batch = item
+            pending.append((collector.submit(collect, seq, batch),
+                            n_processed, seq))
             n_processed += len(batch)
             while (len(pending) > lookahead
                    or (pending and pending[0][0].done())):
-                prev_fut, prev_n = pending.popleft()
-                _put(out_q, finalize(prev_fut.result(), prev_n))
+                prev_fut, prev_n, prev_seq = pending.popleft()
+                _put(out_q, finalize(prev_seq, prev_fut.result(), prev_n))
                 print(f"[bwamem-tpu] processed {n_processed} reads...",
                       file=sys.stderr)
         while pending and not stop.is_set():
-            prev_fut, prev_n = pending.popleft()
-            _put(out_q, finalize(prev_fut.result(), prev_n))
+            prev_fut, prev_n, prev_seq = pending.popleft()
+            _put(out_q, finalize(prev_seq, prev_fut.result(), prev_n))
     finally:
         stop_was_error = stop.is_set() or bool(errors)
         collector.shutdown(wait=False)

@@ -28,6 +28,7 @@ import torch
 from ..index.format import FMIndex
 from ..ops.shd import shd_filter_batch
 from ..ops.swalign import sw_align_batch
+from ..utils import timing
 from .chain import Chain
 from .options import (MemOptions, MEM_HSP_COEF, MEM_MINSC_COEF,
                       MEM_SEEDSW_COEF, MEM_SHORT_EXT, MEM_SHORT_LEN)
@@ -233,7 +234,9 @@ def _sw_scores(opt: MemOptions, pairs, device) -> np.ndarray:
                          up(np.asarray(opt.mat, np.int32)),
                          up(np.zeros(N, np.int32)), opt.o_del, opt.e_del,
                          opt.o_ins, opt.e_ins, opt.a)
-    return out["score"].cpu().numpy()
+    scores = out["score"].cpu().numpy()
+    timing.count("host_syncs")
+    return scores
 
 
 def _shd_pass(pairs, device) -> np.ndarray:
@@ -252,7 +255,9 @@ def _shd_pass(pairs, device) -> np.ndarray:
     ok = shd_filter_batch(torch.from_numpy(R).to(device),
                           torch.from_numpy(F).to(device),
                           torch.from_numpy(lens).to(device), SHD_MAX_ERR)
-    return ok.cpu().numpy()
+    ok = ok.cpu().numpy()
+    timing.count("host_syncs")
+    return ok
 
 
 def _sw_window(idx: FMIndex, query, qb0: int, ln: int, rb0: int):

@@ -2,7 +2,10 @@
 each copied module equals its original in bwamem_tpu once `bwamem_tpu` is
 rewritten to `bwamem_tpu_torch`. The one allowed content edit is the
 native loader's build directory (the port builds libbwamem_native.so into
-its own `_build/` directory, from the same <repo>/native sources)."""
+its own `_build/` directory, from the same <repo>/native sources).
+utils/timing.py and pipeline/runtime.py are the port's own (its trace and
+the chunk ids it carries); tests/test_torch_trace.py holds the port's
+runtime to the JAX runtime's SAM."""
 import os
 import re
 
@@ -14,10 +17,9 @@ COPIED = [
     "index/format.py", "index/build.py", "index/suffix_array.py",
     "index/ingest.py", "io/fastx.py", "native/loader.py", "native/samfmt_opts.py",
     "pipeline/options.py", "pipeline/chain.py", "pipeline/regions.py",
-    "pipeline/samgen.py", "pipeline/regarrays.py", "pipeline/runtime.py",
+    "pipeline/samgen.py", "pipeline/regarrays.py",
     "pipeline/hostpool.py", "oracle/ksw.py", "ops/globalalign.py",
-    "utils/dna.py", "utils/shapes.py", "utils/timing.py",
-    "utils/simgenome.py",
+    "utils/dna.py", "utils/shapes.py", "utils/simgenome.py",
 ]
 
 # (original line, port line) pairs, per module
