@@ -1,5 +1,6 @@
-"""nvcc build of the port's CUDA kernels, and the argument check their
-wrappers share.
+"""The build of the port's own libraries (nvcc for its CUDA kernels, g++
+for its host library), and the argument check the kernels' wrappers
+share.
 
 Each kernel source in `csrc/` is compiled for sm_90a into its own shared
 library with a plain C interface, in the package's `_build/` directory,
@@ -32,22 +33,31 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def build(source: Path, lib: Path) -> tuple[float, str | None]:
-    """Compile `source` into `lib` if the library is missing or older than
-    its source or a header in `csrc/` (the kernels share job_bins.cuh).
-    Returns (seconds spent compiling, the compiler's output with its
-    register and spill report); (0.0, None) when up to date."""
-    newest = max(p.stat().st_mtime
-                 for p in [source, *source.parent.glob("*.cuh")])
+def build(sources, lib: Path, cmd: list[str] | None = None,
+          deps=()) -> tuple[float, str | None]:
+    """Compile `sources` (a path or a list of them) into `lib` with `cmd`
+    (the compiler and its flags; None: nvcc with NVCC_FLAGS) if the
+    library is missing or older than a source, a header beside one
+    (`*.cuh`, `*.h`; the kernels share job_bins.cuh) or a file of `deps`
+    (sources that a source includes). Returns (seconds spent compiling,
+    the compiler's output, with nvcc's register and spill report);
+    (0.0, None) when up to date."""
+    sources = [sources] if isinstance(sources, Path) else list(sources)
+    dirs = {s.parent for s in sources}
+    newest = max(p.stat().st_mtime for p in [
+        *sources, *deps, *(h for d in dirs for pat in ("*.cuh", "*.h")
+                           for h in d.glob(pat))])
     if lib.exists() and lib.stat().st_mtime >= newest:
         return 0.0, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cmd = cmd or [nvcc(), *NVCC_FLAGS]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
-    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    res = subprocess.run([*cmd, "-o", str(tmp), *map(str, sources)],
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} "
+        raise RuntimeError(f"{Path(cmd[0]).name} failed on "
+                           f"{', '.join(s.name for s in sources)} "
                            f"({res.returncode}):\n{res.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a
     #                       half-written library

@@ -13,7 +13,9 @@ granularity:
                      overlaps device time
   main thread     -> finalization (mark-primary/pairing/CIGAR/SAM) for
                      chunk i, fanned out over the HostPool worker
-                     processes (the kt_for/worker2 equivalent, -t)
+                     processes (the kt_for/worker2 equivalent, -t); at
+                     -t 1 on a card the CIGARs are solved there
+                     (pipeline/finalize.py)
   writer thread   -> ordered SAM write
 
 Order is preserved: chunks finalize strictly in input order.
@@ -47,11 +49,13 @@ def run_pipeline(records: Iterator[SeqRecord], aligner, chunk_bases: int,
                  queue_depth: int = 2, paired: bool = False,
                  host_pool=None, lookahead: int = 2) -> int:
     """Stream records through the aligner; returns #reads processed."""
+    from . import finalize as device_finalize
     from .hostpool import HostPool
 
     timings = timings or Timings()
     aligner.timings = timings  # fine-grained sub-spans inside "collect"
     pool = host_pool or HostPool(aligner.opt, aligner.idx, 1)
+    emitter = device_finalize.route(aligner, pool, timings) or pool
     in_q: queue.Queue = queue.Queue(maxsize=queue_depth)
     out_q: queue.Queue = queue.Queue(maxsize=queue_depth)
     errors: list[BaseException] = []
@@ -123,11 +127,11 @@ def run_pipeline(records: Iterator[SeqRecord], aligner, chunk_bases: int,
         names, seqs, quals, regs, pes, comments = res
         with timing.chunk(seq), timings.span("finalize"):
             if paired:
-                lines = pool.emit_pe(names, seqs, quals, regs, pes,
-                                     n_processed, comments)
+                lines = emitter.emit_pe(names, seqs, quals, regs, pes,
+                                        n_processed, comments)
             else:
-                lines = pool.emit_se(names, seqs, quals, regs, n_processed,
-                                     comments)
+                lines = emitter.emit_se(names, seqs, quals, regs,
+                                        n_processed, comments)
         return seq, lines
 
     rt = threading.Thread(target=reader, name="reader", daemon=True)

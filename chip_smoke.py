@@ -6,9 +6,9 @@ Phases (each prints its own lines; any failure exits nonzero):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from csrc/ with nvcc, one nvcc a library, all in
      parallel: K1 (dense extension), K2 (local SW), K3 (banded
-     extension), K4 (the 16-bit probe) and the seeding kernels' three
-     libraries (S1 seed_forward and S3 seed_reseed_forward, S2
-     seed_backward, S4 sa_lookup);
+     extension), K4 (the 16-bit probe), K5 (the finalize's CIGAR solve)
+     and the seeding kernels' three libraries (S1 seed_forward and S3
+     seed_reseed_forward, S2 seed_backward, S4 sa_lookup);
   2. each kernel against its plain PyTorch version on the card at the main
      paths' shapes, exact equality, median of 5 timed runs, with the bound
      (the larger of bytes over HBM bandwidth and the DP's integer
@@ -40,7 +40,8 @@ Phases (each prints its own lines; any failure exits nonzero):
      and 16384 FR pairs (insert max(260, N(350, 50)), 1% of the pairs with
      an unseedable read 2), all 150 bp with 1% substitutions;
   4. align the SE reads (two chunks of 16384) through the CLI entry point
-     with --device cuda, counting K1 launches; then the first 1024 reads
+     with --device cuda, counting K1 and K5 launches (the finalize at
+     -t 1 on a card solves its CIGARs on K5, pipeline/finalize.py); then the first 1024 reads
      with --device cpu, whose SAM must be byte-identical to the GPU run's
      (apart from @PG); then K1 on the inputs of the second (warm) chunk's
      launch, captured by wrapping extend_kernel.extend_batch: exact
@@ -48,7 +49,7 @@ Phases (each prints its own lines; any failure exits nonzero):
      share and bound (so too after phase 6, on its launch, and after
      phase 8, on -x pacbio's 1024 bucket);
   5. align the pairs from two files (two chunks of 8192 pairs) through the
-     CLI entry point with --device cuda, counting K1 and K2 launches; then
+     CLI entry point with --device cuda, counting K1, K2 and K5 launches; then
      the first 1024 pairs on the GPU and with --device cpu, whose SAM must
      be byte-identical (apart from @PG); then K2 on the inputs of the
      second chunk's rescue launch, captured as K1's are (capture_calls):
@@ -116,8 +117,18 @@ Phases (each prints its own lines; any failure exits nonzero):
      (collect) on the kernels and on the plain route under
      torch.profiler, in a process of its own: wall, seed_device, CUDA
      kernels, device busy share; the kernel route's profile must hold
-     S1-S4's kernels (SEED_KERNEL_NAMES).
-Phases 12-15 print their seconds. Then one JSON line for the kernels
+     S1-S4's kernels (SEED_KERNEL_NAMES);
+ 16. the finalize (finalize_phase): SE 150 and PE 150 (phases 4 and 5's
+     reads and chunks), 8192 pairs of 2 x 250, phase 6's 1 kb reads,
+     -x pacbio's, and -a (4096 reads) and -a -M (4096 pairs) of 150 bp,
+     each through the CLI with the split finalize (K5) and again with
+     the native finalize it replaces: the whole SAMs byte-identical, each
+     run's finalize span, the jobs K5 and the host solved, K5's launches;
+     then K5 on the largest captured call of SE 150, PE 250, 1 kb and
+     -x pacbio against its plain version on a sample of the call's jobs, exact,
+     timed, with its bound over the live band cells of the passes K5
+     runs.
+Phases 12-16 print their seconds. Then one JSON line for the kernels
 (the seeding kernels with phase 4's launches, launches by phase, and
 phase 4's warm-chunk records), the card line, and the device JSON as
 the last line.
@@ -1235,19 +1246,22 @@ def make_world(d: str, genome_len: int = GENOME_LEN, n_reads: int = N_READS,
 
 
 def make_pairs(d: str, g, n_pairs: int, seed: int,
-               victim_every: int = VICTIM_EVERY):
+               victim_every: int = VICTIM_EVERY, read_len: int = READ_LEN,
+               insert=(350, 50, 260), tag: str = ""):
     """The JAX package's PE bench traffic (bench.py main_pe): FR pairs of
-    150 bp, insert max(260, N(350, 50)), 1% substitutions. Every
-    victim_every-th pair's read 2 gets one substitution every 12 bp, so it
-    has no 19-bp seed (a victim). Names carry both origins and the victim
-    flag: p{i}_{pos1}_{pos2}_{victim}."""
+    150 bp, insert max(260, N(350, 50)), 1% substitutions (other pairs
+    by read_len and insert = (mean, sd, least)) into {tag}r1.fq /
+    {tag}r2.fq and their first N_COMPARE pairs into {tag}head1.fq /
+    {tag}head2.fq. Every victim_every-th pair's read 2 gets one
+    substitution every 12 bp, so it has no 19-bp seed (a victim). Names
+    carry both origins and the victim flag: p{i}_{pos1}_{pos2}_{victim}."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    L = READ_LEN
+    L = read_len
     recs = ([], [])
     for i in range(n_pairs):
-        isize = max(260, int(rng.normal(350, 50)))
+        isize = max(insert[2], int(rng.normal(insert[0], insert[1])))
         p = int(rng.integers(0, len(g) - isize - 1))
         frag = g[p:p + isize]
         a = frag[:L].copy()
@@ -1263,9 +1277,9 @@ def make_pairs(d: str, g, n_pairs: int, seed: int,
             seq = "".join("ACGTN"[c] for c in r)
             out.append(f"@{name}\n{seq}\n+\n{'I' * L}\n")
     for k, out in enumerate(recs, 1):
-        with open(os.path.join(d, f"r{k}.fq"), "w") as f:
+        with open(os.path.join(d, f"{tag}r{k}.fq"), "w") as f:
             f.writelines(out)
-        with open(os.path.join(d, f"head{k}.fq"), "w") as f:
+        with open(os.path.join(d, f"{tag}head{k}.fq"), "w") as f:
             f.writelines(out[:N_COMPARE])
 
 
@@ -1281,10 +1295,12 @@ def align_phase(d: str, device: str = "cuda",
     (K1, and the seeding kernels: all four must launch on the card) and
     K1's calls captured (capture_calls; the seeding kernels' calls too,
     capture_seed_calls, into the list `seed_calls` when one is given).
-    Then the first N_COMPARE reads on the CPU. Returns K1's launch count,
-    reads/s and its captured calls."""
+    Then the first N_COMPARE reads on the CPU. K5's launches (the split
+    finalize's CIGAR solve) are counted too and must be at least one on
+    the card. Returns K1's launch count, reads/s and its captured
+    calls."""
     from bwamem_tpu_torch.cli import main
-    from bwamem_tpu_torch.ops.kernels import extend_kernel
+    from bwamem_tpu_torch.ops.kernels import cigar_kernel, extend_kernel
 
     idx = os.path.join(d, "idx")
     out = os.path.join(d, f"{device}.sam")
@@ -1292,14 +1308,14 @@ def align_phase(d: str, device: str = "cuda",
     argv = ["align", "--device", device, "-t", "1", "-K",
             str(chunk_reads * READ_LEN), "-f", tsv, idx,
             os.path.join(d, "reads.fq"), "-o", out]
-    extend_kernel.LAUNCHES = 0
+    extend_kernel.LAUNCHES = cigar_kernel.LAUNCHES = 0
     _reset_seed_counts()
     t0 = time.perf_counter()
     with capture_calls("K1") as calls, capture_seed_calls() as scalls:
         if main(argv) != 0:
             raise SystemExit("align failed")
     wall = time.perf_counter() - t0
-    launches = extend_kernel.LAUNCHES
+    launches, k5 = extend_kernel.LAUNCHES, cigar_kernel.LAUNCHES
     _seed_phase("4", device, SEED_ALL)
     if seed_calls is not None:
         seed_calls.extend(scalls)
@@ -1319,10 +1335,12 @@ def align_phase(d: str, device: str = "cuda",
           f"(index load + setup included) = {n / wall:.1f} reads/s; "
           f"mapped {mapped / n:.4f}; at simulated origin {placed / n:.4f}; "
           f"spans collect {row.get('collect')} s, ext_device "
-          f"{row.get('ext_device')} s over {n_chunks} chunks; "
-          f"K1 launches {launches}", flush=True)
-    if launches < 1 and device == "cuda":
-        raise SystemExit("the main path launched no extension kernel")
+          f"{row.get('ext_device')} s, finalize {row.get('finalize')} s "
+          f"(cigar_device {row.get('cigar_device')} s) over {n_chunks} "
+          f"chunks; K1 launches {launches}, K5 launches {k5}", flush=True)
+    if (launches < 1 or k5 < 1) and device == "cuda":
+        raise SystemExit("the main path launched no extension kernel or "
+                         "no K5")
     if mapped < 0.9 * n:
         raise SystemExit(f"only {mapped}/{n} reads mapped")
 
@@ -1366,10 +1384,12 @@ def pe_align_phase(d: str, device: str = "cuda",
     kernels must launch on the card) and K2's calls captured
     (capture_calls). Then the
     head pairs on `device` and on the CPU, with the same flags and -K,
-    must give the same SAM. Returns (K1 launches, K2 launches, pairs/s, the
-    captured K2 calls)."""
+    must give the same SAM. K5's launches are counted too (at least one on
+    the card). Returns (K1 launches, K2 launches, pairs/s, the captured K2
+    calls)."""
     from bwamem_tpu_torch.cli import main
-    from bwamem_tpu_torch.ops.kernels import extend_kernel, swalign_kernel
+    from bwamem_tpu_torch.ops.kernels import (cigar_kernel, extend_kernel,
+                                              swalign_kernel)
 
     idx = os.path.join(d, "idx")
 
@@ -1386,13 +1406,14 @@ def pe_align_phase(d: str, device: str = "cuda",
         return out, tsv
 
     extend_kernel.LAUNCHES = 0
-    swalign_kernel.LAUNCHES = 0
+    swalign_kernel.LAUNCHES = cigar_kernel.LAUNCHES = 0
     _reset_seed_counts()
     t0 = time.perf_counter()
     with capture_calls("K2") as sw_calls:
         out, tsv = align(device, "r1.fq", "r2.fq", "main")
     wall = time.perf_counter() - t0
     k1, k2 = extend_kernel.LAUNCHES, swalign_kernel.LAUNCHES
+    k5 = cigar_kernel.LAUNCHES
     _seed_phase("5", device, SEED_ALL)
     body = [ln.split("\t") for ln in _records(out) if not ln.startswith("@")]
     prim = [f for f in body if not int(f[1]) & 0x900]
@@ -1417,10 +1438,12 @@ def pe_align_phase(d: str, device: str = "cuda",
           f"in {n_chunks} chunks; spans collect {row.get('collect')} s, "
           f"pe_rescue {row.get('pe_rescue')} s, pe_rescue_sw "
           f"{row.get('pe_rescue_sw')} s, ext_device {row.get('ext_device')} "
-          f"s, finalize {row.get('finalize')} s; "
-          f"K1 launches {k1}, K2 launches {k2}", flush=True)
-    if device == "cuda" and (k1 < 1 or k2 < 1):
-        raise SystemExit("the PE main path launched no K1 or no K2")
+          f"s, finalize {row.get('finalize')} s (cigar_device "
+          f"{row.get('cigar_device')} s); "
+          f"K1 launches {k1}, K2 launches {k2}, K5 launches {k5}",
+          flush=True)
+    if device == "cuda" and (k1 < 1 or k2 < 1 or k5 < 1):
+        raise SystemExit("the PE main path launched no K1, K2 or K5")
     if mapped < 0.9 * n:
         raise SystemExit(f"only {mapped}/{n} PE records mapped")
     if not victims or placed < 0.9 * len(victims):
@@ -1463,13 +1486,15 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     route, K2, K3, the seeding kernels), reads/s and, with `capture`, the
     device run's K1, K2 and K3 calls (capture_calls) as k1_calls, k2_calls
     and k3_calls and its seeding calls (capture_seed_calls) as
-    seed_calls."""
+    seed_calls. K5's launches (the finalize's CIGAR solve) are counted
+    with the others."""
     from bwamem_tpu_torch.cli import main
-    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
-                                              swalign_kernel)
+    from bwamem_tpu_torch.ops.kernels import (cigar_kernel, extend_banded,
+                                              extend_kernel, swalign_kernel)
 
     idx = os.path.join(d, "idx")
-    mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded}
+    mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded,
+            "K5": cigar_kernel}
 
     def align(dev, path, label):
         out = os.path.join(d, f"{tag}_{label}.sam")
@@ -1502,12 +1527,13 @@ def flag_phase(d: str, tag: str, reads: str, n_head: int, flags: list,
     mapped = sum(not int(f[1]) & 4 for f in prim)
     spans = ", ".join(f"{k} {row[k]} s" for k in (
         "collect", "seed_device", "seed_filter", "chain_native",
-        "ext_device", "finalize") if row.get(k))
+        "ext_device", "finalize", "cigar_device") if row.get(k))
     print(f"{tag} ({' '.join(flags) or 'default flags'}) --device {device}: "
           f"{n} reads in {wall:.2f} s wall (index load + setup included) = "
           f"{n / wall:.1f} reads/s; mapped {mapped / n:.4f}; spans {spans}; "
           f"launches K1 {counts['K1']} (wide route {counts['K1_wide']}), "
-          f"K2 {counts['K2']}, K3 {counts['K3']}", flush=True)
+          f"K2 {counts['K2']}, K3 {counts['K3']}, K5 {counts['K5']}",
+          flush=True)
     if device == "cuda":
         missing = [k for k in need if counts[k] < 1]
         if missing:
@@ -1723,19 +1749,20 @@ def _same_step(got: dict, want: dict, n: int, what: str,
 
 
 def _counts():
-    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
-                                              swalign_kernel)
+    from bwamem_tpu_torch.ops.kernels import (cigar_kernel, extend_banded,
+                                              extend_kernel, swalign_kernel)
 
     return dict(K1=extend_kernel.LAUNCHES, K2=swalign_kernel.LAUNCHES,
-                K3=extend_banded.LAUNCHES, **_seed_counts())
+                K3=extend_banded.LAUNCHES, K5=cigar_kernel.LAUNCHES,
+                **_seed_counts())
 
 
 def _reset_counts() -> None:
-    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
-                                              swalign_kernel)
+    from bwamem_tpu_torch.ops.kernels import (cigar_kernel, extend_banded,
+                                              extend_kernel, swalign_kernel)
 
     extend_kernel.LAUNCHES = swalign_kernel.LAUNCHES = 0
-    extend_banded.LAUNCHES = 0
+    extend_banded.LAUNCHES = cigar_kernel.LAUNCHES = 0
     _reset_seed_counts()
 
 
@@ -2144,18 +2171,293 @@ def fresh_seed_profile(d: str, chunk_reads: int, device: str,
     return json.loads(lines[-1][len("PROFILE "):])
 
 
+# phase 16: the finalize's cases on the world of phases 3-8, (tag, reads
+# files, flags, -K bases or None for the default): SE 150 (phase 4's
+# chunks), PE 150 (phase 5's), PE 2 x 250, phase 6's 1 kb reads,
+# -x pacbio's noisy 1 kb reads, and -a / -a -M on heads of the 150 bp reads
+FINALIZE_CASES = (
+    ("se150", ("reads.fq",), (), CHUNK_READS * READ_LEN),
+    ("pe150", ("r1.fq", "r2.fq"), (), CHUNK_PAIRS * 2 * READ_LEN),
+    ("pe250", ("p250r1.fq", "p250r2.fq"), (), None),
+    ("1kb", ("long.fq",), (), None),
+    ("pacbio", ("pb.fq",), ("-x", "pacbio"), None),
+    ("se150 -a", ("fin_a.fq",), ("-a",), None),
+    ("pe150 -a -M", ("fin_a1.fq", "fin_a2.fq"), ("-a", "-M"), None))
+# phase 16: pairs of 2 x 250 (insert N(550, 100), at least 300; no
+# victims), and the heads -a and -a -M run on
+FIN_SIZES = dict(pe250=8192, se_a=4096, pe_a=4096)
+# the captured K5 calls replayed against the plain version (largest
+# call of the case), and how many of its jobs the plain version solves
+K5_REPLAY = {"se150": 2000, "pe250": 1000, "1kb": 150, "pacbio": 60}
+K5_OPS_UNGAPPED = 2   # gen_cigar's ungapped call: a score and an add a base
+
+
+@contextmanager
+def capture_finalize(split: bool = True):
+    """Inside the block, `align` finalizes through the split finalize
+    (`split`: pipeline/finalize.route as it is, its DeviceFinalize objects
+    recorded) or the native one (route patched to None: HostPool's
+    emitters, the finalize before K5). K5's calls (cigar_kernel.solve,
+    which the split finalize calls through the module attribute) are
+    recorded as (args, kwargs). Yields (the DeviceFinalize objects, the
+    K5 calls)."""
+    from bwamem_tpu_torch.ops.kernels import cigar_kernel
+    from bwamem_tpu_torch.pipeline import finalize
+
+    route, solve = finalize.route, cigar_kernel.solve
+    made, calls = [], []
+
+    def routed(aligner, pool, timings=None):
+        if not split:
+            return None
+        df = route(aligner, pool, timings)
+        if df is not None:
+            made.append(df)
+        return df
+
+    def solved(*args, **kw):
+        calls.append((args, kw))
+        return solve(*args, **kw)
+
+    finalize.route, cigar_kernel.solve = routed, solved
+    try:
+        yield made, calls
+    finally:
+        finalize.route, cigar_kernel.solve = route, solve
+
+
+def _k5_cells(desc, passes, glob):
+    """Live band cells of the passes each job runs (`passes` (N, 3)
+    bool): a DP pass at band b (widened to |rlen - lq|) fills, in each of
+    its rlen rows, the columns max(0, i - w) .. min(lq, i + w + 1); an
+    ungapped pass (b < 0) reads lq bases. The jobs in `glob` write each
+    pass's traceback to global scratch, 16 bytes a row for every 32
+    columns of the band. Returns (DP cells, ungapped bases, scratch
+    bytes written)."""
+    import numpy as np
+
+    d = np.asarray(desc, np.int64)
+    lq, rlen = d[:, 0], d[:, 1]
+    dlen = np.abs(rlen - lq)
+    dp = flat = scratch = 0
+    for c in range(3):
+        b = d[:, 4 + c]
+        on = passes[:, c]
+        flat += int(lq[on & (b < 0)].sum())
+        g = on & glob & (b >= 0)
+        ncol = np.minimum(lq[g], 2 * np.maximum(b[g], dlen[g]) + 1)
+        scratch += int((rlen[g] * ((ncol + 31) // 32) * 16).sum())
+        sel = np.flatnonzero(on & (b >= 0))
+        for lo in range(0, len(sel), 4096):
+            k = sel[lo:lo + 4096]
+            w = np.maximum(b[k], dlen[k])[:, None]
+            i = np.arange(int(rlen[k].max()) if len(k) else 0)[None]
+            cols = (np.minimum(i + w + 1, lq[k][:, None])
+                    - np.maximum(i - w, 0)).clip(min=0)
+            dp += int(np.where(i < rlen[k][:, None], cols, 0).sum())
+    return dp, flat, scratch
+
+
+def _k5_passes(args, kw):
+    """(N, 3) bool: the passes of the retry loop K5 runs for each job it
+    takes, as its loop runs them (a band equal to the last ends the loop
+    unrun; an equal score, the last band or a score at the threshold ends
+    it after the pass). Each band's score comes from K5 on a copy of the
+    jobs with that band as their only one (the same sizes, so the same
+    launch plan)."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import cigar_kernel
+
+    desc = args[3]
+    d = desc.cpu().numpy()
+    N = len(d)
+    nb, thr = d[:, 3].astype(np.int64), d[:, 2].astype(np.int64)
+    scores = np.zeros((N, 3), np.int64)
+    for c in range(3):
+        one = d.copy()
+        one[:, 3] = np.minimum(nb, 1)
+        one[:, 4] = d[:, 4 + c]
+        rows = cigar_kernel.solve(*args[:3], torch.from_numpy(one).to(
+            desc.device), *args[4:], **kw)
+        scores[:, c] = rows[:, 0].cpu().numpy()
+    passes = np.zeros((N, 3), bool)
+    done = ~cigar_kernel.takes(d)
+    last = np.zeros(N, np.int64)
+    for c in range(3):
+        act = ~done & (nb > c)
+        if c:
+            rep = act & (d[:, 4 + c] == d[:, 3 + c])
+            done |= rep
+            act &= ~rep
+        passes[:, c] = act
+        sc = scores[:, c]
+        stop = ((c > 0) & (sc == last)) | (nb - 1 == c) | (sc >= thr)
+        done |= act & stop
+        last = np.where(act, sc, last)
+    return passes
+
+
+def captured_k5(label: str, call, n_plain: int, timed: bool = True) -> dict:
+    """K5 on the inputs of one captured main-path launch: every row of the
+    launch against the plain version (solve_plain, on the CPU) on
+    `n_plain` of its jobs (the widest bands and the most shared memory
+    first, then an even spread), exact, then timed (median of 5, with the
+    plain version's one run on those jobs; `timed` False skips it), with the
+    jobs' share K5 takes and the bound: the live band cells of the passes
+    it runs (_k5_passes, _k5_cells) at OPS_PER_CELL instructions a cell,
+    against the query codes, the packed windows, the descriptors, the
+    rows and the tracebacks written to global scratch once over HBM.
+    Returns the record."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.ops.kernels import cigar_kernel as ck
+
+    args, kw = call
+    qs, qoff, rb, desc, pac, l_pac, mat, *gaps, plan = args
+    d = desc.cpu().numpy()
+    N = len(d)
+    got = ck.solve(*args, **kw).cpu()
+    width = np.maximum(d[:, 7], np.abs(d[:, 1] - d[:, 0]))
+    first = np.lexsort((-ck.job_smem(d), -width))[:n_plain // 2]
+    spread = np.linspace(0, N - 1, max(n_plain - len(first), 1)).astype(int)
+    sel = torch.from_numpy(np.unique(np.concatenate([first, spread])))
+
+    def plain():
+        return ck.solve_plain(qs.cpu(), qoff.cpu()[sel], rb.cpu()[sel],
+                              desc.cpu()[sel], pac.cpu(), l_pac, mat.cpu(),
+                              *gaps, plan.cap)
+
+    t0 = time.perf_counter()
+    want = plain()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = (got[sel] != want).any(1).nonzero()[:, 0]
+    if len(bad):
+        k = int(sel[bad[0]])
+        raise SystemExit(f"K5 != plain on the captured {label} launch: "
+                         f"{len(bad)} of {len(sel)} rows differ, first job "
+                         f"{k} desc {d[k].tolist()}: {got[k, :6].tolist()} "
+                         f"vs {want[int(bad[0]), :6].tolist()}")
+    ms = _median_ms(lambda: ck.solve(*args, **kw)) if timed else None
+    plain_ms = plain_ms if timed else None
+    take = plan.take
+    glob = (np.zeros(N, bool) if plan.tboff is None else plan.tboff >= 0)
+    dp, flat, scratch = _k5_cells(d, _k5_passes(args, kw), glob)
+    ops = dp * OPS_PER_CELL + flat * K5_OPS_UNGAPPED
+    nbytes = (qs.numel() + int(((d[take, 1] + 15) // 16 * 4).sum())
+              + N * (ck.DESC * 4 + 16 + got.shape[1] * 4)
+              + (0 if plan.tboff is None else 8 * N) + scratch)
+    bound = _bound(nbytes, ops)
+    solved = int((got[:, 1] >= 0).sum())
+    print(f"K5 on the captured {label} launch: {N} jobs, qlen quartiles "
+          + " / ".join(f"{x:g}" for x in np.percentile(d[:, 0], [25, 50, 75]))
+          + f", taken {int(take.sum())} ({int(glob.sum())} with the "
+          f"traceback in scratch, {len(plan.tiles)} launches), solved "
+          f"{solved}; {len(sel)} rows == plain; live band cells {dp} (+ "
+          f"{flat} ungapped), scratch written {scratch} B; kernel "
+          f"{ms} ms, plain {plain_ms} ms on {len(sel)} jobs, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, jobs=N,
+                plain_jobs=len(sel), solved=solved, scratch_jobs=int(
+                    glob.sum()), **bound)
+
+
+def finalize_phase(d: str, contigs, device: str = "cuda",
+                   cases=FINALIZE_CASES, sizes=FIN_SIZES, replay=K5_REPLAY,
+                   timed: bool = True) -> dict:
+    """Phase 16 on the world of phases 3-8: each case (FINALIZE_CASES)
+    through the CLI's `align -t 1` on `device` twice, with the split
+    finalize (capture_finalize) and with the native finalize it replaces
+    at `-t 1` on a card. The two SAMs must be byte-identical (apart from
+    @PG), the split finalize must have been routed, and K5 must launch
+    on the card where it took a job. Prints each run's finalize span (and
+    cigar_device), the jobs K5 and the host solved and K5's launches; then
+    K5 on the largest captured call of the cases in `replay` against the
+    plain version (captured_k5). Returns {tag: the case's numbers} and
+    {"k5 " + tag: the replay's record}."""
+    import numpy as np
+
+    from bwamem_tpu_torch.cli import main
+    from bwamem_tpu_torch.io.fastx import _CODE_LUT
+    from bwamem_tpu_torch.ops.kernels import cigar_kernel
+
+    g = _CODE_LUT[np.frombuffer(contigs[0][1].encode(), np.uint8)]
+    make_pairs(d, g, sizes["pe250"], 2500, victim_every=1 << 30,
+               read_len=250, insert=(550, 100, 300), tag="p250")
+    _head(os.path.join(d, "reads.fq"), os.path.join(d, "fin_a.fq"),
+          sizes["se_a"])
+    for k in (1, 2):
+        _head(os.path.join(d, f"r{k}.fq"), os.path.join(d, f"fin_a{k}.fq"),
+              sizes["pe_a"])
+
+    def align(tag, files, flags, kbases, split):
+        label = f"fin_{tag.replace(' ', '')}_{'split' if split else 'native'}"
+        out, tsv = (os.path.join(d, f"{label}.{x}") for x in ("sam", "tsv"))
+        if os.path.exists(tsv):  # the CLI appends
+            os.remove(tsv)
+        argv = ["align", "--device", device, "-t", "1", "-f", tsv, *flags,
+                *(["-K", str(kbases)] if kbases else []),
+                os.path.join(d, "idx"), *(os.path.join(d, f) for f in files),
+                "-o", out]
+        cigar_kernel.LAUNCHES = 0
+        with capture_finalize(split) as (made, calls):
+            if main(argv) != 0:
+                raise SystemExit(f"phase 16 {tag}: align failed")
+        return (_records(out), _timing_row(tsv), made, calls,
+                cigar_kernel.LAUNCHES)
+
+    out, biggest = {}, {}
+    for tag, files, flags, kbases in cases:
+        recs, row, made, calls, k5 = align(tag, files, flags, kbases, True)
+        want, nrow, _, ncalls, _ = align(tag, files, flags, kbases, False)
+        if not made or ncalls:
+            raise SystemExit(f"phase 16 {tag}: the split finalize was "
+                             f"{'not ' if not made else ''}routed")
+        if recs != want:
+            bad = next((i for i, (a, b) in enumerate(zip(recs, want))
+                        if a != b), min(len(recs), len(want)))
+            raise SystemExit(f"phase 16 {tag}: split and native SAM differ "
+                             f"at line {bad}:\n{recs[bad:bad + 1]}\n"
+                             f"{want[bad:bad + 1]}")
+        jobs = sum(m.stats["cigar_jobs"] for m in made)
+        host = sum(m.stats["cigar_host_jobs"] for m in made)
+        if device == "cuda" and jobs and k5 < 1:
+            raise SystemExit(f"phase 16 {tag}: K5 took {jobs} jobs without "
+                             f"a launch")
+        n = sum(not ln.startswith("@") for ln in recs)
+        out[tag] = dict(
+            finalize_s=float(row["finalize"]),
+            native_finalize_s=float(nrow["finalize"]),
+            cigar_device_s=float(row.get("cigar_device", 0.0)),
+            cigar_jobs=jobs, cigar_host_jobs=host, K5=k5, records=n)
+        print(f"phase 16 {tag} ({' '.join(flags) or 'default flags'}): "
+              f"split SAM == native SAM ({n} records); finalize "
+              f"{row['finalize']} s (cigar_device "
+              f"{row.get('cigar_device')} s) vs native {nrow['finalize']} "
+              f"s; cigar_jobs {jobs}, cigar_host_jobs {host} "
+              f"({jobs / max(jobs + host, 1):.4%} on K5); K5 launches {k5}",
+              flush=True)
+        if tag in replay and calls:
+            biggest[tag] = max(calls, key=lambda c: c[0][3].shape[0])
+    for tag, call in biggest.items():
+        out["k5 " + tag] = captured_k5(tag, call, replay[tag], timed)
+    return out
+
+
 def build_kernels():
-    """Build K1, K2, K3, K4 and the seeding kernels' three libraries at
+    """Build K1, K2, K3, K4, K5 and the seeding kernels' three libraries at
     once (one nvcc each) and print each build's register and spill
     report."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from bwamem_tpu_torch.ops.kernels import (extend_banded, extend_kernel,
-                                              int16_probe, seed_kernels,
-                                              swalign_kernel)
+    from bwamem_tpu_torch.ops.kernels import (cigar_kernel, extend_banded,
+                                              extend_kernel, int16_probe,
+                                              seed_kernels, swalign_kernel)
 
     mods = {"K1": extend_kernel, "K2": swalign_kernel, "K3": extend_banded,
-            "K4": int16_probe}
+            "K4": int16_probe, "K5": cigar_kernel}
     with ThreadPoolExecutor(len(mods) + len(seed_kernels.SOURCES)) as ex:
         futs = {k: ex.submit(m.build) for k, m in mods.items()}
         futs.update({k: ex.submit(seed_kernels.build, k)
@@ -2317,6 +2619,11 @@ def main() -> int:
                                 variants["g"]["seed_calls"], fastmap_calls)
         print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+        phase("16 the finalize: split (K5) vs native")
+        t0 = time.perf_counter()
+        fin = finalize_phase(d, contigs)
+        print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [
         dict(name="extend_dense", route="cuda", library_ms=None,
              source="bwamem_tpu_torch/csrc/extend_kernel.cu",
@@ -2374,6 +2681,10 @@ def main() -> int:
              source="bwamem_tpu_torch/csrc/int16_probe.cu",
              replaces="tools/mosaic_probe.py:29",
              launches=probe_launches, **k4)] + [
+        dict(name=f"cigar_solve_{tag}", route="cuda", library_ms=None,
+             source="bwamem_tpu_torch/csrc/cigar_kernel.cu", replaces=None,
+             launches=fin[tag]["K5"], **fin["k5 " + tag])
+        for tag in K5_REPLAY if "k5 " + tag in fin] + [
         dict(name=name, route="cuda", library_ms=None,
              source=SEED_KERNELS[name][1], replaces=SEED_KERNELS[name][0],
              launches=SEED_LAUNCHES["4"][name],

@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU at a small size (its phases with the
 kernels' plain versions and --device cpu: SE, PE, long reads, --vanilla,
 -F, -x pacbio, the seeding variants, fastmap, the 16-bit probe, the fused
-step, the mesh and two hosts), plus
+step, the mesh, two hosts and the split finalize), plus
 its refusal to
 run — and to print a result — without a CUDA device or outside the
 repository."""
@@ -243,6 +243,43 @@ def test_seeding_phase_on_cpu(world, long_runs, monkeypatch, capsys):
                for v in c.values())
     assert "smem_seed_batch on the kernels == the plain route" in \
         capsys.readouterr().out
+
+
+def test_finalize_phase_on_cpu(world, long_runs, monkeypatch, capsys):
+    """Phase 16 at a tiny size on the CPU, the split finalize routed onto
+    K5's plain version (the route engages only on a card), on two of its
+    cases: the split SAM equals the native finalize's, the jobs are
+    counted, and the captured calls replay against the plain version with
+    a bound (at 250 bp with a shared-memory capacity that sends their
+    tracebacks to global scratch, as 1 kb reads' go on the card); CPU
+    tensors launch no kernel."""
+    from bwamem_tpu_torch.io.fastx import read_fastx
+    from bwamem_tpu_torch.ops.kernels import cigar_kernel
+    from bwamem_tpu_torch.pipeline import finalize
+
+    monkeypatch.chdir(world)  # the CLI appends to ./time.log
+    monkeypatch.setattr(finalize, "route", lambda aligner, pool, timings=None:
+                        finalize.DeviceFinalize(pool.opt, pool.idx, "cpu",
+                                                None, timings))
+    monkeypatch.setattr(cigar_kernel, "JOB_SMEM_CAP", 4000)
+    contigs = [(r.name, "".join("ACGTN"[c] for c in r.seq))
+               for r in read_fastx(os.path.join(world, "ref.fa"))]
+    cases = {c[0]: c for c in chip_smoke.FINALIZE_CASES}
+    tags = ("pe250", "se150 -a")
+    out = chip_smoke.finalize_phase(
+        world, contigs, device="cpu", cases=[cases[t] for t in tags],
+        sizes=dict(pe250=12, se_a=16, pe_a=4),
+        replay={"pe250": 12, "se150 -a": 12}, timed=False)
+    assert set(out) == {*tags, *("k5 " + t for t in tags)}
+    assert out["se150 -a"]["records"] > 16  # -a adds secondaries
+    for tag in tags:
+        r, rec = out[tag], out["k5 " + tag]
+        assert r["K5"] == 0 and r["records"] > 0, tag
+        assert r["cigar_jobs"] > 0 and r["cigar_host_jobs"] == 0, tag
+        assert rec["max_abs_err"] == 0 and rec["ms"] is None
+        assert rec["bound_ms"] > 0 and rec["plain_jobs"] <= rec["jobs"]
+    assert out["k5 pe250"]["scratch_jobs"] > 0
+    assert capsys.readouterr().out.count("split SAM == native SAM") == 2
 
 
 @pytest.mark.parametrize("alone", [False, True])
